@@ -10,26 +10,45 @@ Phases (any failure exits non-zero, and no result line is printed):
    gives them.
 2. build: compiles every kernel in ``src/repro_torch/csrc`` with nvcc for
    sm_90a, all sources in parallel.
-3. kernels vs their plain versions on the card: ``gnn_mp`` (max relative
-   error <= 1e-5) at the main path's shapes and on a ~10^6-edge random
-   graph; ``wc_oracle`` bit-exact on run_out and e1 (rho where alive) at
-   the main path's shape B=257, R=72, K=8 and random shapes with drained,
-   all-dropped and tied rows.  Times each kernel, its plain version and
-   (gnn_mp) the one-call library yardstick ``index_add_`` with CUDA events.
-4. main path: three placement requests through ``DopplerTrainer(...,
+3. kernels vs their plain versions on the card, each timed with CUDA
+   events beside its plain version and, where one PyTorch call computes
+   the same function, that call:
+   ``gnn_mp`` (max relative error <= 1e-5) at the placement path's shapes
+   and on a ~10^6-edge random graph (yardstick ``index_add_``);
+   ``wc_oracle`` bit-exact on run_out and e1 (rho where alive) at the
+   placement shape B=257, R=72, K=8 and random shapes with drained,
+   all-dropped and tied rows;
+   ``flash_attention`` (2e-5 in fp32, 2e-2 in bf16) at the serving shape
+   B=4, S=2048, H=32, d=64 in bf16 and fp32 and on random GQA, ragged
+   and non-causal shapes (yardstick ``scaled_dot_product_attention``);
+   ``mamba2_scan`` (y and final state within 1e-4 of max(|ref|, 1)) at
+   the serving shape B*H=64, S=2048, N=64, P=256, chunk 256 and on random
+   ragged shapes with initial states.
+4. placement path: three placement requests through ``DopplerTrainer(...,
    device="cuda")`` at the policy's published width (d_hidden 64, d_z 32,
    d_y 32, 2 GNN layers, random weights from a seed): greedy plus 256
-   samples at eps 0.2, scored in one ``wc_oracle`` batch.  Kernel launch
-   counts are reset just before and read just after; each kernel must have
-   launched.  Then: the population's makespans with the kernel equal the
-   plain oracle's on the card; on the small request they also equal the
-   CPU oracle's and the card's encodings agree with the CPU's.
-5. profile: one more ``llama_layer`` request under ``torch.profiler``
-   (device time per kernel, the device's busy share of the request).
+   samples at eps 0.2, scored in one ``wc_oracle`` batch.  The population's
+   makespans with the kernel equal the plain oracle's on the card; on the
+   small request they also equal the CPU oracle's and the card's
+   encodings agree with the CPU's.  Then one more ``llama_layer`` request
+   under ``torch.profiler``.
+5. serving path: zamba2-1.2B at full width (38 layers, d_model 2048, vocab
+   32,000; random seed-0 weights in bf16) through
+   ``repro_torch.launch.serve``'s functions: batch 4 x prompt 2048, then 32
+   greedy tokens.  One prefill must launch ``flash_attention`` 6 times and
+   ``mamba2_scan`` 32 times.  The kernel path's logits (prefill and 32
+   teacher-forced decode steps) agree with the plain path's on the card,
+   in bf16 over 38 layers and in fp32 over one full-width 6-layer unit.
+   Prints prefill s, decode ms per step, tokens per second and peak
+   memory; then one more prefill and one decode step under
+   ``torch.profiler``.
+   On each path the launch counts are reset just before it is driven and
+   read just after; every kernel must have launched on its path.
 6. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.assign import build_graph_data, encode  # noqa: E402
 from repro_torch.core.device import sync  # noqa: E402
 from repro_torch.core.devices import get_device_model  # noqa: E402
@@ -51,20 +71,45 @@ from repro_torch.core.sim_torch import TorchWCEngine  # noqa: E402
 from repro_torch.core.training import DopplerTrainer  # noqa: E402
 from repro_torch.graphs.workloads import get_workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
 from repro_torch.kernels.gnn_mp import ops as gnn_ops  # noqa: E402
 from repro_torch.kernels.gnn_mp.ref import (build_csr,  # noqa: E402
                                             segment_sum_ref)
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
 from repro_torch.kernels.wc_oracle.ref import wc_step_ref  # noqa: E402
+from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
+                                      prompt_tokens)
+from repro_torch.models.steps import (make_decode_step,  # noqa: E402
+                                      make_prefill_step)
+from repro_torch.models.transformer import init_decode_state  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # tensor cores, dense
 K_POP = 256
 EPS = 0.2
 REQUESTS = [("llama_layer", "v100x8"), ("llama_block", "mixed_gen4"),
             ("ffnn", "p100x4")]
 GNN_REL_TOL = 1e-5
+# the serving request: zamba2-1.2B at full width, random seed-0 weights
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "zamba2_1p2b", 4, 2048, 32
+# kernel vs plain: tests/test_kernels.py's bars (flash: atol = rtol =
+# 2e-5 in fp32, 2e-2 in bf16; mamba2_scan: 1e-4 of max(|ref|, 1))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = 1e-4
+# kernel path vs plain path, logits scaled by max(|plain|, 1).  fp32: the
+# kernels agree to summation order, within LOGITS_TOL.  bf16 over 38 random
+# layers: a one-ulp flip anywhere grows, so the bar of each seed in
+# BF16_SEEDS is the plain path's own gap between its bf16 and its fp32
+# logits on the same weights: the kernels may move the logits no more
+# than bf16 itself does (PERF.md)
+LOGITS_TOL = 1e-4
+BF16_SEEDS = (0, 1, 2, 3)
 
 
 def check(ok: bool, what: str) -> None:
@@ -87,10 +132,17 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    t_ops = ops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1.0)
 
 
 # ------------------------------------------------------------- gnn_mp
@@ -195,6 +247,147 @@ def check_wc_oracle(dev) -> dict:
             "library_ms": None, "shape": {"B": B, "R": R, "K": K}}
 
 
+# ---------------------------------------------------- flash_attention
+def _qkv(gen, B, S, H, Hkv, d, dtype, dev):
+    return [torch.randn(B, S, h, d, generator=gen, device=dev).to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def check_flash(dev, cfg) -> dict:
+    """Kernel vs plain at the serving shape (bf16 and fp32) and on random
+    shapes with GQA, ragged S, S = 1 and non-causal masks."""
+    gen = torch.Generator(dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+    B, S, H, d = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
+    Hkv = cfg.n_kv_heads
+    cases = [(B, S, H, Hkv, d, dt, True) for dt in (torch.bfloat16,
+                                                    torch.float32)]
+    cases += [(1, 1, 4, 2, 64, torch.bfloat16, True),
+              (2, 333, 8, 2, 128, torch.float32, False)]
+    for _ in range(8):
+        hkv = int(rng.integers(1, 5))
+        cases.append((int(rng.integers(1, 4)), int(rng.integers(1, 700)),
+                      hkv * int(rng.integers(1, 4)), hkv,
+                      int(rng.choice([16, 32, 64, 96, 128])),
+                      [torch.bfloat16, torch.float32][int(rng.integers(2))],
+                      bool(rng.integers(2))))
+    errs = {}
+    for b, s, h, hkv, dd, dt, causal in cases:
+        q, k, v = _qkv(gen, b, s, h, hkv, dd, dt, dev)
+        got = fa_ops.flash_attention(q, k, v, causal=causal, backend="cuda")
+        ref = attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dt]
+        diff = (got.float() - ref.float()).abs()
+        check(got.dtype == dt and bool(torch.isfinite(got).all()),
+              f"flash_attention output {b, s, h, hkv, dd, dt}")
+        check(bool((diff <= tol + tol * ref.float().abs()).all()),
+              f"flash_attention {b, s, h, hkv, dd, dt, causal}: max abs "
+              f"err {float(diff.max())} > {tol} (+ rel)")
+        key = str(dt).split(".")[-1]
+        errs[key] = max(errs.get(key, 0.0), float(diff.max()))
+    print(f"flash_attention vs plain on {len(cases)} shapes (serving "
+          f"B={B} S={S} H={H} d={d} bf16 and fp32, GQA, ragged, S=1): max "
+          f"abs err {errs}")
+
+    q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.bfloat16, dev)
+    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, backend="cuda"),
+                 iters=30, warmup=3)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5,
+                       warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True),
+                         iters=30, warmup=3)
+    # the causal half: S(S+1)/2 (query, key) pairs, 2d flops each for
+    # q kᵀ and for p v; q, k, v read and o written once, in bf16
+    flops = 4.0 * B * H * d * S * (S + 1) / 2
+    nbytes = 2.0 * (2 * B * S * H * d + 2 * B * S * Hkv * d)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+            "launches": 0, "max_abs_err": errs["bfloat16"],
+            "max_abs_err_fp32": errs["float32"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "d": d,
+                      "dtype": "bfloat16", "causal": True}}
+
+
+# ------------------------------------------------------- mamba2_scan
+def _ssd_inputs(gen, B, S, H, N, P, dev, state=False):
+    """mamba2_forward's layout: one (B, S, N) q and k broadcast over the
+    heads (head stride 0), log decay -softplus(.) <= 0."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    q = rn(B, S, 1, N).expand(B, S, H, N)
+    k = rn(B, S, 1, N).expand(B, S, H, N)
+    v = rn(B, S, H, P)
+    log_a = -torch.nn.functional.softplus(rn(B, S, H))
+    return q, k, v, log_a, (rn(B, H, P, N) if state else None)
+
+
+def check_mamba2(dev, cfg) -> dict:
+    """Kernel vs plain (y and the final state) at the serving shape and on
+    random shapes with ragged S, S = 1 and a nonzero initial state."""
+    gen = torch.Generator(dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    ssm = cfg.ssm
+    B, S, H, N = SERVE_BATCH, SERVE_PROMPT, ssm.n_heads, ssm.state_dim
+    P, L = ssm.expand * cfg.d_model // H, ssm.chunk
+    cases = [(B, S, H, N, P, L, False), (B, S, H, N, P, L, True),
+             (1, 1, 2, 64, 256, 256, True), (2, 777, 3, 64, 256, 256, True)]
+    for _ in range(6):
+        cases.append((int(rng.integers(1, 4)), int(rng.integers(1, 700)),
+                      int(rng.integers(1, 5)),
+                      int(rng.choice([8, 16, 50, 64])),
+                      int(rng.choice([16, 64, 100, 256])),
+                      int(rng.choice([8, 64, 100, 256])),
+                      bool(rng.integers(2))))
+    max_err = 0.0
+    for b, s, h, n, p, L_, st in cases:
+        q, k, v, log_a, st0 = _ssd_inputs(gen, b, s, h, n, p, dev, st)
+        y, fin = ssd_ops.ssd_scan(q, k, v, log_a, L_, st0, backend="cuda")
+        y_r, fin_r = ssd_scan_ref(q, k, v, log_a, L_, st0)
+        torch.cuda.synchronize()
+        for what, got, ref in (("y", y, y_r), ("state", fin, fin_r)):
+            err = scaled_err(got, ref)
+            check(err <= SSD_TOL, f"mamba2_scan {what} {b, s, h, n, p, L_, st}"
+                                  f": scaled err {err} > {SSD_TOL}")
+            max_err = max(max_err, float((got - ref).abs().max()))
+    print(f"mamba2_scan vs plain on {len(cases)} shapes (serving B={B} "
+          f"S={S} H={H} N={N} P={P} L={L}, ragged, S=1, initial state): y "
+          f"and state within {SSD_TOL} of max(|ref|, 1); max abs err "
+          f"{max_err}")
+
+    q, k, v, log_a, st0 = _ssd_inputs(gen, B, S, H, N, P, dev)
+    st0 = torch.zeros(B, H, P, N, device=dev)       # prefill's initial state
+    ms = time_ms(lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0,
+                                          backend="cuda"), iters=30, warmup=3)
+    plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, log_a, L, st0),
+                       iters=5, warmup=1)
+    # per (b, chunk): the causal pairs' q.k (2N), once, since q and k are
+    # one tensor broadcast over the heads.  Per (b*h, chunk): decay (1)
+    # and p v (2P); q stateᵀ (2LNP) and its scale (LP); the update
+    # (2LNP + LP + 2PN)
+    pairs = L * (L + 1) / 2
+    per_head = pairs * (2 * P + 1) + 4 * L * N * P + 2 * L * P + 2 * P * N
+    flops = B * (S // L) * (pairs * 2 * N + H * per_head)
+    # q, k as the (B, S, N) tensors they are; v, log_a, the state in; y
+    # and the state out
+    nbytes = 4.0 * (2 * B * S * N + B * S * H * P + B * S * H
+                    + 2 * B * H * P * N + B * S * H * P)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"name": "mamba2_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba2_scan.cu",
+            "replaces": "src/repro/kernels/mamba2_scan/kernel.py:26",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": {"B": B, "S": S, "H": H, "N": N, "P": P, "chunk": L}}
+
+
 # ------------------------------------------------------------ main path
 def main_path(dev):
     trainers = []
@@ -276,15 +469,8 @@ def profile_request(tr, untraced_s: float) -> dict:
         tr.place(n_samples=K_POP, eps=EPS)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    rows = []
-    for avg in prof.key_averages():
-        if str(avg.device_type).endswith("CUDA"):
-            us = getattr(avg, "self_device_time_total", None)
-            if us is None:
-                us = avg.self_cuda_time_total
-            rows.append((us, avg.count, avg.key))
+    rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) * 1e-6
-    rows.sort(reverse=True)
     print(f"profile llama_layer request: traced_s={traced_s:.6f} "
           f"untraced_s={untraced_s:.6f} device_busy_s={busy_s:.6f} "
           f"busy_share_traced={busy_s / traced_s:.6f} "
@@ -292,13 +478,212 @@ def profile_request(tr, untraced_s: float) -> dict:
           f"device_launches={sum(r[1] for r in rows)}")
     for us, count, key in rows[:8]:
         print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
-    device_ms = {}
-    for name, tag in (("gnn_mp", "segment_sum_csr"), ("wc_oracle",
-                                                       "wc_step(")):
+    return per_launch_ms(rows, (("gnn_mp", "segment_sum_csr"),
+                                ("wc_oracle", "wc_step(")))
+
+
+def device_rows(prof) -> list:
+    """(device us, launches, name) per kernel name, largest first."""
+    rows = []
+    for avg in prof.key_averages():
+        if str(avg.device_type).endswith("CUDA"):
+            us = getattr(avg, "self_device_time_total", None)
+            if us is None:
+                us = avg.self_cuda_time_total
+            rows.append((us, avg.count, avg.key))
+    return sorted(rows, reverse=True)
+
+
+def per_launch_ms(rows, tags) -> dict:
+    """Device ms per launch of each named kernel (None if not traced)."""
+    out = {}
+    for name, tag in tags:
         hit = [(us, c) for us, c, key in rows if tag in key]
-        device_ms[name] = (sum(h[0] for h in hit) * 1e-3
-                           / max(sum(h[1] for h in hit), 1)) if hit else None
-    return device_ms
+        out[name] = (sum(h[0] for h in hit) * 1e-3
+                     / max(sum(h[1] for h in hit), 1)) if hit else None
+    return out
+
+
+# ------------------------------------------------------ serving path
+def teacher_forced(params, cfg, prompt, tokens, backend, state_dtype):
+    """Prefill ``prompt``, then one decode step per column of ``tokens``
+    (fed, not sampled); -> the logits of prefill's last position and of
+    every step."""
+    B, S = prompt.shape
+    T = tokens.shape[1]
+    state = init_decode_state(cfg, B, S + T, dtype=state_dtype,
+                              device=prompt.device)
+    prefill = make_prefill_step(cfg, S + T, backend, backend)
+    decode = make_decode_step(cfg, backend, backend)
+    with torch.inference_mode():
+        logits, state = prefill(params, {"tokens": prompt}, state)
+        out = [logits]
+        for i in range(T):
+            logits, state = decode(params, {"tokens": tokens[:, i:i + 1]},
+                                   state, S + i)
+            out.append(logits)
+    return out
+
+
+def compare_paths(params, cfg, prompt, tokens, state_dtype, what,
+                  plain=None, fp32=None) -> tuple[float, float]:
+    """Kernel path vs plain path (both backends "torch") on the card: the
+    logits of prefill and of each teacher-forced decode step; -> (max
+    scaled gap, its bar).  ``plain``: the plain path's logits, if already
+    computed.  The bar is LOGITS_TOL, or, given ``fp32`` (the plain path's
+    logits at compute_dtype float32 on the same weights), the plain path's
+    own largest gap from them."""
+    kern = teacher_forced(params, cfg, prompt, tokens, "cuda", state_dtype)
+    if plain is None:
+        plain = teacher_forced(params, cfg, prompt, tokens, "torch",
+                               state_dtype)
+    check(all(bool(torch.isfinite(x).all()) for x in kern + plain),
+          f"{what}: finite logits")
+    errs = [scaled_err(a, b) for a, b in zip(kern, plain)]
+    tol, vs_fp32 = LOGITS_TOL, ""
+    if fp32 is not None:
+        tol = max(scaled_err(a, b) for a, b in zip(plain, fp32))
+        vs_fp32 = (f"; vs the plain path's fp32 logits: plain "
+                   f"{tol} (the bar), kernel "
+                   f"{max(scaled_err(a, b) for a, b in zip(kern, fp32))}; "
+                   f"argmax agreement of plain with fp32 "
+                   f"{argmax_agreement(plain, fp32)}")
+    print(f"{what}: kernel vs plain path, logits of prefill + "
+          f"{tokens.shape[1]} decode steps: max scaled err {max(errs)} "
+          f"(prefill {errs[0]}, tol {tol}), argmax agreement "
+          f"{argmax_agreement(kern, plain)}{vs_fp32}")
+    return max(errs), tol
+
+
+def argmax_agreement(a: list, b: list) -> float:
+    """Share of (step, sequence) pairs whose greedy token is the same."""
+    same = [(x.argmax(-1) == y.argmax(-1)).float().mean()
+            for x, y in zip(a, b)]
+    return float(torch.stack(same).mean())
+
+
+def serve_path(dev):
+    """The serving request through repro_torch.launch.serve's functions:
+    zamba2-1.2B at full width, batch 4 x prompt 2048, 32 greedy tokens.
+    Launch counts are reset just before and read just after."""
+    cfg = get_config(SERVE_ARCH)
+    params = load_model(cfg, seed=0, device=dev)
+    prompt = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=dev)
+    generate(params, cfg, prompt[:, :64], 2)         # first-use set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = ssd_ops.launches = 0
+    res = generate(params, cfg, prompt, SERVE_GEN)
+    launches = {"flash_attention": fa_ops.launches,
+                "mamba2_scan": ssd_ops.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return cfg, params, prompt, res, launches, peak_gb
+
+
+def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
+    n_attn = cfg.pattern_for_depth().count("attn_shared")
+    n_mamba = cfg.pattern_for_depth().count("mamba")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 2048, 32000),
+          "zamba2-1.2B at its published width")
+    check(launches == {"flash_attention": n_attn, "mamba2_scan": n_mamba}
+          == {"flash_attention": 6, "mamba2_scan": 32},
+          f"one prefill launches flash_attention 6x and mamba2_scan 32x: "
+          f"{launches}")
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+          "generated tokens")
+    check(all(lg.shape == (SERVE_BATCH, cfg.vocab)
+              and bool(torch.isfinite(lg).all()) for lg in res.logits),
+          "finite logits of the expected shape")
+    steps = SERVE_GEN - 1
+    print(f"serve {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"random seed-0 weights, {cfg.compute_dtype}): batch "
+          f"{SERVE_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
+          f"prefill_s={res.prefill_s:.6f} prefill_tokens_per_s="
+          f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f} "
+          f"decode_ms_per_step={res.decode_ms_per_step:.6f} "
+          f"decode_tokens_per_s={SERVE_BATCH * steps / res.decode_s:.1f} "
+          f"peak_memory_gb={peak_gb:.3f} launches {launches}")
+    # fp32 on the same draws (init_params is fp32; the cast is a no-op).
+    # bf16 on several seeds, each against its own plain fp32 logits; the
+    # gaps of all seeds are printed before any is checked
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gaps = []
+    for seed in BF16_SEEDS:
+        p16, toks, pr = params, res.tokens, prompt
+        if seed:
+            p16 = load_model(cfg, seed=seed, device=dev)
+            pr = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=seed,
+                               device=dev)
+            toks = generate(p16, cfg, pr, SERVE_GEN).tokens
+        p32 = load_model(cfg32, seed=seed, device=dev)
+        plain32 = teacher_forced(p32, cfg32, pr, toks, "torch",
+                                 torch.float32)
+        gaps.append(compare_paths(
+            p16, cfg, pr, toks, torch.bfloat16,
+            f"{cfg.name} bf16, {cfg.n_layers} layers, seed {seed}",
+            fp32=plain32))
+        if not seed:
+            err, tol = compare_paths(
+                p32, cfg32, pr, toks, torch.float32,
+                f"{cfg.name} fp32, {cfg.n_layers} layers", plain=plain32)
+            check(err <= tol, f"fp32 {cfg.n_layers} layers: kernel vs plain "
+                              f"logits {err} > {tol}")
+        del p16, p32, plain32
+    for seed, (err, tol) in zip(BF16_SEEDS, gaps):
+        check(err <= tol, f"bf16 seed {seed}: kernel vs plain logits {err} "
+                          f"> the plain path's own bf16 gap {tol}")
+    cfg6 = dataclasses.replace(cfg32, n_layers=6)
+    err, tol = compare_paths(load_model(cfg6, seed=0, device=dev), cfg6,
+                             prompt, res.tokens, torch.float32,
+                             f"{cfg.name} fp32, one full-width unit "
+                             f"(6 layers)")
+    check(err <= tol, f"fp32 6 layers: kernel vs plain logits {err} > {tol}")
+
+
+def _profiled(fn):
+    """Run ``fn`` under ``torch.profiler``; -> (traced s, device rows)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    return traced_s, device_rows(prof)
+
+
+def profile_serve(params, cfg, prompt, res) -> dict:
+    """One more prefill, then one decode step, under ``torch.profiler``:
+    device time per kernel name and the device's busy share of each."""
+    B, S = prompt.shape
+    state = init_decode_state(cfg, B, S + SERVE_GEN, device=prompt.device)
+    prefill = make_prefill_step(cfg, S + SERVE_GEN)
+    decode = make_decode_step(cfg)
+    out = {}
+    phases = (("prefill", lambda: out.update(pre=prefill(
+                  params, {"tokens": prompt}, state)), res.prefill_s, 10),
+              ("decode step", lambda: decode(
+                  params, {"tokens": res.tokens[:, :1]}, out["pre"][1], S),
+               res.decode_ms_per_step * 1e-3, 6))
+    rows_by_phase = {}
+    for name, fn, untraced_s, top in phases:
+        traced_s, rows = _profiled(fn)
+        busy_s = sum(r[0] for r in rows) * 1e-6
+        print(f"profile {cfg.name} {name} (B={B}, S={S}): traced_s="
+              f"{traced_s:.6f} untraced_s={untraced_s:.6f} device_busy_s="
+              f"{busy_s:.6f} busy_share_traced={busy_s / traced_s:.6f} "
+              f"busy_share_untraced={busy_s / untraced_s:.6f} "
+              f"device_launches={sum(r[1] for r in rows)}")
+        for us, count, key in rows[:top]:
+            print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
+        rows_by_phase[name] = rows
+    return per_launch_ms(rows_by_phase["prefill"],
+                         (("flash_attention", "flash_fwd"),
+                          ("mamba2_scan", "ssd_chunk_scan")))
 
 
 def main() -> int:
@@ -321,15 +706,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [check_gnn_mp(dev), check_wc_oracle(dev)]
+    serve_cfg = get_config(SERVE_ARCH)
+    kernels = [check_gnn_mp(dev), check_wc_oracle(dev),
+               check_flash(dev, serve_cfg), check_mamba2(dev, serve_cfg)]
+    by_name = {k["name"]: k for k in kernels}
+
+    # path 1: placement requests (gnn_mp, wc_oracle)
     trainers, answers, per_request, launches = main_path(dev)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} launched on the main path")
     check_main_path(trainers, answers, per_request, dev)
     device_ms = profile_request(trainers[0], sum(answers[0].seconds.values()))
-    for k in kernels:
-        k["device_ms"] = device_ms[k["name"]]
+    del trainers, answers
+
+    # path 2: serving zamba2-1.2B (flash_attention, mamba2_scan)
+    cfg, params, prompt, res, serve_launches, peak_gb = serve_path(dev)
+    launches.update(serve_launches)
+    check_serve_path(cfg, params, prompt, res, serve_launches, peak_gb, dev)
+    device_ms.update(profile_serve(params, cfg, prompt, res))
+
+    for name, k in by_name.items():
+        k["launches"] = launches[name]
+        k["device_ms"] = device_ms[name]
+        check(k["launches"] > 0, f"{name} launched on its path")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,12 @@
+# Copy of src/repro/configs/phi4_mini_3p8b.py (pure data).
+"""phi4-mini-3.8b [dense]: 32L d_model=3072 24H (GQA kv=8) d_ff=8192
+vocab=200064, RoPE SwiGLU GQA [arXiv:2412.08905; hf]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab=200064, act="swiglu", norm="rms",
+    rope_theta=10000.0, tie_embeddings=True,
+    block_pattern=("attn",), subquadratic=False,
+)

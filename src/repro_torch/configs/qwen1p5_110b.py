@@ -1,0 +1,12 @@
+# Copy of src/repro/configs/qwen1p5_110b.py (pure data).
+"""qwen1.5-110b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=49152
+vocab=152064, QKV bias [hf:Qwen/Qwen1.5-*; hf]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-110b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=49152, vocab=152064, act="swiglu", norm="rms", qkv_bias=True,
+    rope_theta=1000000.0, tie_embeddings=False,
+    block_pattern=("attn",), subquadratic=False,
+)

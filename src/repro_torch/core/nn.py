@@ -92,11 +92,13 @@ def tree_leaves(tree) -> list[torch.Tensor]:
 
 
 def tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts / lists / tuples; ``None``
+    stays ``None`` (an empty slot, as in a JAX pytree)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
+    return None if tree is None else fn(tree)
 
 
 def tree_size(tree) -> int:

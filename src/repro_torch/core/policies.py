@@ -10,12 +10,11 @@ already placed on device d.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .features import N_FLEET_FEATS
 from .gnn import apply_gnn, init_gnn, path_embedding
-from .nn import apply_mlp, init_mlp, leaky_relu, tree_map
+from .nn import apply_mlp, init_mlp, leaky_relu
 
 N_STATIC_FEATS = 5      # Appendix E.1
 N_DEVICE_FEATS = 5      # Appendix E.2
@@ -35,18 +34,6 @@ def init_policies(gen: torch.Generator, d_hidden: int = 64, d_z: int = 32,
         "plc_head1": init_mlp(gen, [2 * d_hidden + d_y + d_z, d_hidden]),
         "plc_head2": init_mlp(gen, [d_hidden, 1]),
     }
-
-
-def params_from_jax(tree, device: str | torch.device = "cpu"):
-    """The reference's parameter pytree, with numpy leaves, as the port's
-    parameters (same nesting, float32 tensors on ``device``)."""
-    return tree_map(lambda x: torch.from_numpy(
-        np.array(x, dtype=np.float32)).to(device), tree)
-
-
-def params_to_numpy(params):
-    """The way back: the same nesting with float32 numpy leaves."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), params)
 
 
 def episode_encodings(params, x, edges, edge_feat, b_path, t_path,

@@ -22,12 +22,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry point of each source: (symbol, argtypes); every entry returns
-# cudaGetLastError() as an int
+# a cudaError_t as an int
 ENTRY_POINTS = {
     "gnn_mp": ("gnn_mp_segment_sum", [P, P, P, P, I, I, P]),
     "wc_oracle": ("wc_oracle_step", [P, P, P, P, P, P, I, I, I, P]),
+    "flash_attention": ("flash_attention_fwd",
+                        [P, P, P, P, I, I, I, I, I, I, I, P]),
+    "mamba2_scan": ("mamba2_scan_fwd",
+                    [P] * 7 + [I] * 7 + [I64] * 6 + [P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

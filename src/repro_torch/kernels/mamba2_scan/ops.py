@@ -1,0 +1,96 @@
+"""Public wrapper: the Mamba2 / SSD chunked scan (twin of
+``repro/kernels/mamba2_scan/ops.py::ssd_scan``, which also returns the
+carried state here).
+
+``ssd_scan(q, k, v, log_a, chunk, state)`` runs the CUDA kernel
+``csrc/mamba2_scan.cu`` on CUDA tensors and the plain version (ref.py) on
+CPU tensors or when ``backend="torch"``.  As in the reference launcher,
+the within-chunk cumulative sum of ``log_a`` is taken here, outside the
+kernel, after ``log_a`` is zero-padded to a multiple of the chunk.  The
+kernel treats q, k and v past S as that same zero padding, so a ragged S
+needs no padded copy of them.  q and k are read through their strides:
+``mamba2_forward`` passes one (B, S, N) tensor broadcast over the heads
+(head stride 0), which is never materialised.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .ref import ssd_scan_ref
+
+BACKENDS = ("torch", "cuda")
+MAX_STATE_DIM = 64
+
+# kernel launches in this process (read and reset by chip_smoke.py)
+launches = 0
+
+
+def chunk_cumsum(log_a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, H) log decay -> (B*H, n_chunks*chunk) inclusive cumulative
+    sums within each chunk, zero-padded past S, head-major."""
+    B, S, H = log_a.shape
+    n_chunks = -(-S // chunk)
+    la = F.pad(log_a.float(), (0, 0, 0, n_chunks * chunk - S))
+    cum = la.reshape(B, n_chunks, chunk, H).cumsum(dim=2)
+    # contiguous: with B == 1 the reshape alone would be a strided view
+    return cum.permute(0, 3, 1, 2).contiguous().view(B * H, -1)
+
+
+def _launch(q, k, v, log_a, chunk, state):
+    global launches
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    for name, t, shape in (("q", q, (B, S, H, N)), ("k", k, (B, S, H, N)),
+                           ("v", v, (B, S, H, P)), ("log_a", log_a,
+                                                    (B, S, H))):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"mamba2_scan: {name} must be float32 {shape} "
+                             f"on {q.device}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or not v.is_contiguous():
+        raise ValueError("mamba2_scan: q and k need a unit stride on N and "
+                         "v must be contiguous")
+    if state is not None and (state.device != q.device
+                              or state.dtype != torch.float32
+                              or tuple(state.shape) != (B, H, P, N)
+                              or not state.is_contiguous()):
+        raise ValueError(f"mamba2_scan: state must be contiguous float32 "
+                         f"{(B, H, P, N)} on {q.device}")
+    if not 1 <= N <= MAX_STATE_DIM or chunk < 1:
+        raise ValueError(f"mamba2_scan: state dim {N} not in "
+                         f"[1, {MAX_STATE_DIM}] or chunk {chunk} < 1")
+    y = torch.empty(B, S, H, P, dtype=torch.float32, device=q.device)
+    st = torch.empty(B, H, P, N, dtype=torch.float32, device=q.device)
+    if S == 0 or P == 0 or B * H == 0:
+        return y, (st.zero_() if state is None else st.copy_(state))
+    cum = chunk_cumsum(log_a, chunk)
+    lib = _build.load("mamba2_scan")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mamba2_scan_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cum.data_ptr(),
+        0 if state is None else state.data_ptr(), y.data_ptr(),
+        st.data_ptr(), B, S, H, N, P, chunk, cum.shape[1] // chunk,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+        k.stride(2), stream)
+    _build.check("mamba2_scan", rc)
+    launches += 1
+    return y, st
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, chunk: int,
+             state: torch.Tensor | None = None, backend: str = "cuda"):
+    """Chunked gated linear attention.  q, k: (B, S, H, N); v: (B, S, H,
+    P); log_a: (B, S, H) <= 0; state: (B, H, P, N) carried in, or None for
+    zeros.  Returns y (B, S, H, P) and the final state (B, H, P, N), both
+    float32."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown mamba2_scan backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if backend == "torch" or q.device.type == "cpu":
+        return ssd_scan_ref(q, k, v, log_a, chunk, state)
+    if q.device.type != "cuda":
+        raise ValueError(f"mamba2_scan: unsupported device {q.device}")
+    return _launch(q, k, v, log_a, chunk, state)

@@ -1,0 +1,309 @@
+"""Generic decoder-only model (twin of ``repro/models/transformer.py``),
+ported for the block kinds ``attn``, ``attn_shared`` and ``mamba`` with a
+dense FFN: the serving path of zamba2 and of the dense configs.
+
+A model is a ``block_pattern`` unit tiled over depth.  Parameters keep the
+reference's layout: ``params["unit"][i]`` holds the weights of unit
+position i stacked over the ``reps`` repetitions (axis 0),
+``params["rem"]`` the remainder blocks, and ``attn_shared`` positions hold
+``None`` because their weights live once, in ``params["shared_attn"]``
+(zamba2), with one KV cache per occurrence.  The reference's
+``lax.scan`` over repetitions is a Python loop here, and its sharding
+annotations have no counterpart on one device.
+
+Modes: 'train' (full-sequence forward; no loss or backward here),
+'prefill' (the same forward, filling the decode state) and 'decode' (one
+token against the carried state).  Train and prefill run attention through
+the ``flash_attention`` kernel and the Mamba2 scan through the
+``mamba2_scan`` kernel; both backends default to "cuda" on the card and
+"torch" (the plain versions) on the CPU.
+
+State: decode writes the new token's K and V into the caches it is given,
+in place, and prefill writes the prompt's (the reference returns updated
+copies; here a cache copy per step is avoided).  SSD states and conv
+tails are returned as new tensors, as in the reference.
+
+Not ported yet (ROADMAP A11): the ``mlstm`` / ``slstm`` kinds, MoE, the
+audio and vision frontends, and training (``lm_loss``); they raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.nn import tree_map
+from ..kernels.flash_attention import ops as fa_ops
+from .attention import decode_attention
+from .common import (apply_norm, apply_rope, cast_block_params, dense_init,
+                     dtype_of, embed_init, softcap)
+from .config import ModelConfig
+from .mlp import dense_ffn, init_dense_ffn
+from .ssm import init_mamba2, mamba2_forward, mamba2_step
+
+ATTN_KINDS = ("attn", "attn_shared")
+PORTED_KINDS = ATTN_KINDS + ("mamba",)
+UNPORTED = "not ported to repro_torch yet (ROADMAP A11)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for parts of the model not ported."""
+    kinds = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: block kinds {kinds} are "
+                                  f"{UNPORTED}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: the MoE FFN is {UNPORTED}")
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
+                                  f"frontend is {UNPORTED}")
+    if cfg.attn_mixed_precision:
+        # the flash kernel, like the Pallas one, computes the fp32 mode
+        raise NotImplementedError(f"{cfg.name}: bf16 attention products "
+                                  f"(attn_mixed_precision) are {UNPORTED}")
+
+
+# ==================================================================== init
+def _zeros(gen, *shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+def _init_attn_block(gen, cfg: ModelConfig, dtype):
+    d = cfg.d_model
+    p = {"wq": dense_init(gen, d, cfg.q_dim, dtype),
+         "wk": dense_init(gen, d, cfg.kv_dim, dtype),
+         "wv": dense_init(gen, d, cfg.kv_dim, dtype),
+         "wo": dense_init(gen, cfg.q_dim, d, dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = _zeros(gen, cfg.q_dim, dtype=dtype)
+        p["bk"] = _zeros(gen, cfg.kv_dim, dtype=dtype)
+        p["bv"] = _zeros(gen, cfg.kv_dim, dtype=dtype)
+    if cfg.norm == "rms":
+        p["ln1"] = _zeros(gen, d, dtype=dtype)
+        p["ln2"] = _zeros(gen, d, dtype=dtype)
+    if cfg.d_ff > 0:
+        p["ffn"] = init_dense_ffn(gen, d, cfg.d_ff, cfg.act, dtype)
+    return p
+
+
+def _init_block(gen, kind: str, cfg: ModelConfig, dtype):
+    if kind in ATTN_KINDS:
+        return _init_attn_block(gen, cfg, dtype)
+    norm = ({"ln1": _zeros(gen, cfg.d_model, dtype=dtype)}
+            if cfg.norm == "rms" else {})
+    return {**norm, "core": init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)}
+
+
+def unit_and_reps(cfg: ModelConfig):
+    unit = tuple(cfg.block_pattern)
+    reps = cfg.n_layers // len(unit)
+    rem = cfg.pattern_for_depth()[reps * len(unit):]
+    return unit, reps, rem
+
+
+def _stack(trees):
+    if not trees:
+        raise ValueError("a model needs at least one repetition of its unit")
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters in ``cfg.param_dtype``, drawn from ``seed`` (a
+    torch generator, whose device they take, or an int seeding one on
+    ``device``).  The draws are torch's, not the reference's;
+    ``models/convert.py`` carries reference parameters across."""
+    check_supported(cfg)
+    gen = (seed if isinstance(seed, torch.Generator) else
+           torch.Generator(resolve_device(device)).manual_seed(seed))
+    dtype = dtype_of(cfg.param_dtype)
+    unit, reps, rem = unit_and_reps(cfg)
+    params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype)}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype)
+    if cfg.norm == "rms":
+        params["final_norm"] = _zeros(gen, cfg.d_model, dtype=dtype)
+    if "attn_shared" in unit or "attn_shared" in rem:
+        params["shared_attn"] = _init_attn_block(gen, cfg, dtype)
+    params["unit"] = [
+        None if kind == "attn_shared"
+        else _stack([_init_block(gen, kind, cfg, dtype) for _ in range(reps)])
+        for kind in unit]
+    params["rem"] = [None if kind == "attn_shared"
+                     else _init_block(gen, kind, cfg, dtype) for kind in rem]
+    return params
+
+
+def cast_params(params: dict, cfg: ModelConfig) -> dict:
+    """Cast once, at load, what the reference casts at every use:
+    matrices to the compute dtype, vectors kept fp32 (the rule of
+    ``cast_block_params``; unit leaves carry a leading repetition axis).
+    The embedding and head are matrices too: the reference casts their
+    rows at lookup and the whole matrix at the head, which gives the same
+    values."""
+    cdt = dtype_of(cfg.compute_dtype)
+    out = {k: cast_block_params(v, cdt) for k, v in params.items()
+           if k != "unit"}
+    out["unit"] = [cast_block_params(p, cdt, stacked=True)
+                   for p in params["unit"]]
+    return out
+
+
+# ================================================================== state
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=torch.bfloat16,
+                      device: str | torch.device = "cuda") -> dict:
+    """Per-layer decode state, stacked like the params (unit/rem lists):
+    (K cache, V cache) per attention occurrence, (SSD state, conv tail)
+    per Mamba2 block.  Caches and tails in ``dtype``, SSD states fp32."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    unit, reps, rem = unit_and_reps(cfg)
+
+    def one(kind, lead=()):
+        z = lambda *s, dt=dtype: torch.zeros(*lead, batch, *s, dtype=dt,
+                                             device=device)
+        if kind in ATTN_KINDS:
+            kv = (cache_len, cfg.n_kv_heads, cfg.head_dim)
+            return (z(*kv), z(*kv))          # two buffers: written in place
+        di = cfg.ssm.expand * cfg.d_model
+        H, N = cfg.ssm.n_heads, cfg.ssm.state_dim
+        return (z(H, di // H, N, dt=torch.float32),
+                z(cfg.ssm.conv_width - 1, di))
+
+    return {"unit": [one(kind, (reps,)) for kind in unit],
+            "rem": [one(kind) for kind in rem]}
+
+
+# ================================================================= blocks
+def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
+                      cache_pos, backend):
+    B, S, _ = x.shape
+    h = apply_norm(cfg.norm, x, p.get("ln1"))
+
+    def proj(w, b, heads):
+        y = h @ p[w]
+        if cfg.qkv_bias:
+            y = y + p[b].to(h.dtype)
+        return y.reshape(B, S, heads, cfg.head_dim)
+
+    q = apply_rope(proj("wq", "bq", cfg.n_heads), positions, cfg.rope_theta)
+    k = apply_rope(proj("wk", "bk", cfg.n_kv_heads), positions,
+                   cfg.rope_theta)
+    v = proj("wv", "bv", cfg.n_kv_heads)
+
+    if mode == "decode":
+        kc, vc = cache
+        kc[:, cache_pos] = k[:, 0]
+        vc[:, cache_pos] = v[:, 0]
+        attn = decode_attention(q, kc, vc, cache_pos,
+                                mixed=cfg.attn_mixed_precision)
+    else:
+        # both of the reference's train/prefill paths (attn_impl "full" and
+        # "chunked") compute this one function
+        attn = fa_ops.flash_attention(q, k, v, causal=True, backend=backend)
+        if mode == "prefill":
+            kc, vc = cache
+            kc[:, :S] = k
+            vc[:, :S] = v
+    x = x + attn.reshape(B, S, cfg.q_dim) @ p["wo"]
+    if cfg.d_ff <= 0:
+        return x, cache
+    h2 = apply_norm(cfg.norm, x, p.get("ln2"))
+    return x + dense_ffn(p["ffn"], h2, cfg.act), cache
+
+
+def _mamba_block_apply(p, cfg: ModelConfig, x, mode, state, backend):
+    h = apply_norm(cfg.norm, x, p.get("ln1"))
+    if mode == "decode":
+        ssd, tail = state
+        y, ssd, tail = mamba2_step(p["core"], h, cfg.ssm, ssd, tail)
+        return x + y, (ssd, tail)
+    y, ssd = mamba2_forward(p["core"], h, cfg.ssm,
+                            state[0] if state is not None else None,
+                            backend=backend)
+    tail = state[1] if state is not None else None
+    if mode == "prefill":
+        di = cfg.ssm.expand * cfg.d_model
+        tail = h[:, -(cfg.ssm.conv_width - 1):, :] \
+            @ p["core"]["w_in"][:, di:2 * di]
+    return x + y, (ssd, tail)
+
+
+# ================================================================ forward
+def _embed(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.tie_embeddings:
+        scale = float(np.sqrt(np.float32(cfg.d_model)))   # fp32, as in jnp
+        x = x * torch.tensor(scale, dtype=x.dtype)
+    return x
+
+
+def _lm_head(params, cfg: ModelConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return softcap(x @ w, cfg.logit_softcap)
+
+
+def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
+                state=None, cache_pos: int | None = None,
+                attn_backend: str | None = None,
+                ssm_backend: str | None = None):
+    """Returns (logits, new_state, aux_loss).  ``params``: as
+    ``cast_params`` returns them (``launch/serve.py::load_model`` casts at
+    load).  ``batch["tokens"]``: (B, S) token ids (decode: (B, 1)).  train:
+    no state; prefill: ``state`` from ``init_decode_state``, caches filled
+    from position 0; decode: the carried state, ``cache_pos`` the position
+    of the token."""
+    check_supported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    unit, reps, rem = unit_and_reps(cfg)
+    x = _embed(params, cfg, batch["tokens"])
+    B, S, _ = x.shape
+    default = "cuda" if x.device.type == "cuda" else "torch"
+    attn_backend = attn_backend or default
+    ssm_backend = ssm_backend or default
+    if mode == "decode":
+        positions = torch.full((B, 1), cache_pos, device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)[None, :]
+    shared = params.get("shared_attn")
+
+    def block(kind, p, x, st):
+        if kind in ATTN_KINDS:
+            w = shared if kind == "attn_shared" else p
+            return _attn_block_apply(w, cfg, x, positions, mode, st,
+                                     cache_pos, attn_backend)
+        return _mamba_block_apply(p, cfg, x, mode, st, ssm_backend)
+
+    new_unit = [[] for _ in unit]
+    for r in range(reps):
+        for i, kind in enumerate(unit):
+            p = tree_map(lambda t: t[r], params["unit"][i])
+            st = None if state is None else tree_map(lambda t: t[r],
+                                                     state["unit"][i])
+            x, st = block(kind, p, x, st)
+            new_unit[i].append(st)
+    new_rem = []
+    for i, kind in enumerate(rem):
+        st = None if state is None else state["rem"][i]
+        x, st = block(kind, params["rem"][i], x, st)
+        new_rem.append(st)
+
+    new_state = None
+    if state is not None:
+        new_state = {"rem": new_rem, "unit": [
+            state["unit"][i] if kind in ATTN_KINDS     # written in place
+            else tuple(torch.stack(parts) for parts in zip(*new_unit[i]))
+            for i, kind in enumerate(unit)]}
+    x = apply_norm(cfg.norm, x, params.get("final_norm"))
+    logits = _lm_head(params, cfg, x)
+    return logits, new_state, torch.zeros((), device=x.device)
+
+
+def lm_loss(*args, **kwargs):
+    raise NotImplementedError(f"LM training is {UNPORTED}")

@@ -8,7 +8,9 @@ file imports no jax, so it runs where only PyTorch is installed:
 Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive); the
 ``gnn_mp`` segment-sum within 1e-5 of the plain version relative to the
 output's largest magnitude (both sum in fp32, in different orders);
-the oracle's makespans with the kernel equal to the plain path's.
+the oracle's makespans with the kernel equal to the plain path's;
+``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16) and ``mamba2_scan``
+within 1e-4 scaled by max(|ref|, 1), the bars of tests/test_kernels.py.
 """
 import numpy as np
 import pytest
@@ -18,9 +20,13 @@ from repro_torch.core.devices import get_device_model
 from repro_torch.core.sim_torch import SimGraph, makespan_fifo_batch
 from repro_torch.core.training import DopplerTrainer
 from repro_torch.graphs import workloads
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gnn_mp import ops as gnn_ops
 from repro_torch.kernels.gnn_mp.ref import build_csr, segment_sum_ref
 from repro_torch.kernels.wc_oracle import ops as wc_ops
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref
 from repro_torch.kernels.wc_oracle.ref import wc_step_ref
 
 pytestmark = pytest.mark.cuda
@@ -132,3 +138,96 @@ def test_placement_request_on_the_card(cuda):
     assert wc_ops.launches > w0
     assert pl.population.shape == (16, g.n) and np.isfinite(pl.makespans).all()
     assert pl.makespan == pl.makespans.min()
+
+
+# ------------------------------------------------- flash_attention (B3)
+def _qkv(cuda, B, S, Hq, Hkv, d, dtype, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return [torch.randn(B, S, h, d, generator=g, device=cuda).to(dtype)
+            for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,d", [
+    (2, 256, 4, 2, 64), (1, 128, 2, 1, 128), (2, 512, 8, 8, 32),
+    (1, 384, 6, 3, 64), (2, 100, 4, 4, 16), (1, 1, 2, 1, 64),
+    (3, 193, 6, 2, 96), (1, 65, 1, 1, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, d, dtype,
+                                              causal):
+    """Bars of tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16 (the
+    kernel and the plain version both compute in fp32 and round once)."""
+    q, k, v = _qkv(cuda, B, S, Hq, Hkv, d, dtype, B * S + Hq)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, backend="cuda")
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    ref = attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 4, 2, 64, torch.float32, 0)
+    with pytest.raises(ValueError):                  # mixed dtypes
+        fa_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):                  # Hq % Hkv != 0
+        fa_ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError):                  # head_dim > 128
+        fa_ops.flash_attention(*_qkv(cuda, 1, 8, 1, 1, 256,
+                                     torch.float32, 0))
+    with pytest.raises(ValueError):                  # not contiguous
+        fa_ops.flash_attention(q.transpose(1, 2), k, v)
+
+
+# ----------------------------------------------------- mamba2_scan (B4)
+def _ssd_inputs(cuda, B, S, H, N, P, seed, shared_qk=False, state=False):
+    g = torch.Generator(cuda).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    if shared_qk:            # mamba2_forward's layout: one (B, S, N), H views
+        q = (rn(B, S, N) * 0.5)[:, :, None].expand(B, S, H, N)
+        k = (rn(B, S, N) * 0.5)[:, :, None].expand(B, S, H, N)
+    else:
+        q, k = rn(B, S, H, N) * 0.5, rn(B, S, H, N) * 0.5
+    v = rn(B, S, H, P)
+    log_a = -rn(B, S, H).abs() * 0.1
+    st = rn(B, H, P, N) if state else None
+    return q, k, v, log_a, st
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk,shared,state", [
+    (1, 256, 4, 16, 32, 64, False, False), (2, 128, 1, 64, 64, 128, False,
+                                            True),
+    (1, 512, 3, 8, 16, 128, False, False), (1, 256, 1, 32, 128, 32, False,
+                                            False),
+    (2, 200, 2, 64, 256, 64, True, True), (1, 1, 2, 8, 64, 8, True, False),
+    (2, 37, 3, 5, 70, 16, False, True), (1, 300, 2, 64, 96, 256, True,
+                                         False)])
+def test_mamba2_scan_kernel_matches_plain(cuda, B, S, H, N, P, chunk, shared,
+                                          state):
+    """y and the final state within 1e-4 of the plain version, scaled by
+    max(|ref|, 1) (tests/test_kernels.py's bar); ragged S, S = 1, head
+    stride 0 and a nonzero initial state included."""
+    q, k, v, log_a, st = _ssd_inputs(cuda, B, S, H, N, P, B * S + N,
+                                     shared, state)
+    before = ssd_ops.launches
+    y, fin = ssd_ops.ssd_scan(q, k, v, log_a, chunk, st, backend="cuda")
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_r, fin_r = ssd_scan_ref(q, k, v, log_a, chunk, st)
+    for got, ref in ((y, y_r), (fin, fin_r)):
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) / scale <= 1e-4
+
+
+def test_mamba2_scan_kernel_rejects_bad_inputs(cuda):
+    q, k, v, log_a, _ = _ssd_inputs(cuda, 1, 16, 2, 128, 8, 0)
+    with pytest.raises(ValueError):                  # N > 64
+        ssd_ops.ssd_scan(q, k, v, log_a, 8)
+    q, k, v, log_a, _ = _ssd_inputs(cuda, 1, 16, 2, 8, 8, 0)
+    with pytest.raises(ValueError):                  # bf16 v
+        ssd_ops.ssd_scan(q, k, v.bfloat16(), log_a, 8)
+    with pytest.raises(ValueError):                  # state of the wrong shape
+        ssd_ops.ssd_scan(q, k, v, log_a, 8, torch.zeros(1, 2, 8, 4,
+                                                        device=cuda))

@@ -21,6 +21,7 @@ from repro_torch.core import assign, policies
 from repro_torch.core.devices import get_device_model
 from repro_torch.core.nn import tree_leaves, tree_size
 from repro_torch.graphs import workloads
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
 ATOL = 1e-5
 CASES = [("synthetic_layered", (3, 4), "p100x4", 16),
@@ -35,10 +36,10 @@ def _jax_params(d_hidden, seed=0):
 
 def test_params_round_trip_bit_equal():
     tree = to_numpy_params(_jax_params(64))
-    params = policies.params_from_jax(tree)
+    params = params_from_numpy(tree)
     # the reference's defaults: 40 leaves, 110,978 floats
     assert len(tree_leaves(params)) == 40 and tree_size(params) == 110_978
-    back = policies.params_to_numpy(params)
+    back = params_to_numpy(params)
     flat_ref = jax.tree_util.tree_leaves(tree)
     flat_back = jax.tree_util.tree_leaves(back)
     assert jax.tree_util.tree_structure(tree) == \
@@ -69,7 +70,7 @@ def test_encodings_and_plc_logits_match(gname, args, fleet, d_hidden):
     devj, dev = jax_fleet(fleet), get_device_model(fleet)
     jparams = _jax_params(d_hidden)
     npp = to_numpy_params(jparams)
-    params = policies.params_from_jax(npp)
+    params = params_from_numpy(npp)
     gdj = jax_assign.build_graph_data(gj, devj)
     gd = assign.build_graph_data(g, dev, device="cpu")
     H, sel, z = assign.encode(params, gd, backend="torch")

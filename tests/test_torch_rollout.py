@@ -20,9 +20,10 @@ from repro.core.devices import get_device_model as jax_fleet
 from repro.core.train_fused import _episode_rng_tables, sample_episodes
 from repro.core.zero_shot import greedy_place, to_numpy_params
 from repro.graphs import workloads as jax_workloads
-from repro_torch.core import assign, policies
+from repro_torch.core import assign
 from repro_torch.core.devices import get_device_model
 from repro_torch.graphs import workloads
+from repro_torch.models.convert import params_from_numpy
 
 ATOL = 1e-5
 K = 6
@@ -34,7 +35,7 @@ def _setup(gname, args, fleet, d_hidden, seed=0):
     devj = jax_fleet(fleet)
     jparams = jax_policies.init_policies(jax.random.PRNGKey(seed),
                                          d_hidden=d_hidden)
-    params = policies.params_from_jax(to_numpy_params(jparams))
+    params = params_from_numpy(to_numpy_params(jparams))
     return (gj, devj, jparams, jax_assign.build_graph_data(gj, devj),
             params, assign.build_graph_data(g, get_device_model(fleet),
                                             device="cpu"))

@@ -22,10 +22,10 @@ from repro.core.training import DopplerTrainer as JaxTrainer
 from repro.core.zero_shot import to_numpy_params
 from repro.graphs import workloads as jax_workloads
 from repro_torch.core.devices import get_device_model
-from repro_torch.core.policies import params_from_jax
 from repro_torch.core.sim_torch import TorchWCEngine
 from repro_torch.core.training import DopplerTrainer
 from repro_torch.graphs import workloads
+from repro_torch.models.convert import params_from_numpy
 
 K = 8
 
@@ -37,7 +37,7 @@ def _pair(gname, args, fleet, d_hidden=16):
     pt = DopplerTrainer(g, get_device_model(fleet), seed=0,
                         d_hidden=d_hidden, device="cpu",
                         encoder_backend="torch", oracle_backend="torch")
-    pt.params = params_from_jax(to_numpy_params(jt.params))
+    pt.params = params_from_numpy(to_numpy_params(jt.params))
     return gj, jt, pt
 
 
