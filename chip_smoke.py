@@ -9,18 +9,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them.
 2. build: compiles every kernel in ``src/repro_torch/csrc`` with nvcc for
-   sm_90a, all sources in parallel.
+   sm_90a, all sources in parallel; prints each kernel's registers and
+   spills (``-Xptxas=-v``).
 3. kernels vs their plain versions on the card, each timed with CUDA
    events beside its plain version and, where one PyTorch call computes
    the same function, that call:
    ``gnn_mp`` (max relative error <= 1e-5) at the placement path's shapes
-   and on a ~10^6-edge random graph (yardstick ``index_add_``);
+   and on a ~10^6-edge random graph (yardstick ``index_add_``, also in
+   device time under the profiler);
    ``wc_oracle`` bit-exact on run_out and e1 (rho where alive) at the
    placement shape B=257, R=72, K=8 and random shapes with drained,
    all-dropped and tied rows;
    ``flash_attention`` (2e-5 in fp32, 2e-2 in bf16) at the serving shape
    B=4, S=2048, H=32, d=64 in bf16 and fp32 and on random GQA, ragged
-   and non-causal shapes (yardstick ``scaled_dot_product_attention``);
+   and non-causal shapes (yardstick ``scaled_dot_product_attention``):
+   bf16 at d 64 and 128 runs the tensor-core kernel ``flash_fwd_wgmma``,
+   fp32 the CUDA-core ``flash_fwd``; both are timed, the first also
+   against ``flash_fwd`` on the same bf16 inputs;
    ``mamba2_scan`` (y and final state within 1e-4 of max(|ref|, 1)) at
    the serving shape B*H=64, S=2048, N=64, P=256, chunk 256 and on random
    ragged shapes with initial states.
@@ -35,7 +40,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. serving path: zamba2-1.2B at full width (38 layers, d_model 2048, vocab
    32,000; random seed-0 weights in bf16) through
    ``repro_torch.launch.serve``'s functions: batch 4 x prompt 2048, then 32
-   greedy tokens.  One prefill must launch ``flash_attention`` 6 times and
+   greedy tokens.  One prefill must launch ``flash_attention`` 6 times, all
+   of them ``flash_fwd_wgmma`` (launch counters and profiler), and
    ``mamba2_scan`` 32 times.  The kernel path's logits (prefill and 32
    teacher-forced decode steps) agree with the plain path's on the card,
    in bf16 over 38 layers and in fp32 over one full-width 6-layer unit.
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -179,8 +186,20 @@ def check_gnn_mp(dev) -> dict:
     ms = time_ms(lambda: gnn_ops.segment_sum(msg, idx, n, backend="cuda",
                                              csr=csr))
     plain_ms = time_ms(lambda: segment_sum_ref(msg, idx, n, csr))
-    library_ms = time_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
-        0, idx, msg))
+    library = lambda: torch.zeros(n, d, device=dev).index_add_(0, idx, msg)
+    library_ms = time_ms(library)
+    # device time of the same calls under the profiler, per call: the
+    # library's fill and index_add_ kernels against the kernel's one launch
+    calls = 20
+    _, lib_rows = _profiled(lambda: [library() for _ in range(calls)])
+    _, k_rows = _profiled(lambda: [gnn_ops.segment_sum(
+        msg, idx, n, backend="cuda", csr=csr) for _ in range(calls)])
+    library_device_ms = sum(r[0] for r in lib_rows) * 1e-3 / calls
+    device_ms = per_launch_ms(k_rows, (("k", "segment_sum_csr"),))["k"]
+    print(f"gnn_mp m={m} n={n} d={d}: device ms per call: kernel "
+          f"{device_ms:.6f}, index_add_ {library_device_ms:.6f} ("
+          + ", ".join(f"{c // calls} x {key[:40]}" for _, c, key in lib_rows)
+          + ")")
     nbytes = 4 * (m * d + m + (n + 1) + n * d)    # msg, perm, row_ptr, out
     b_ms, b_by = bound_ms(nbytes, m * d)
     return {"name": "gnn_mp", "route": "cuda",
@@ -189,6 +208,8 @@ def check_gnn_mp(dev) -> dict:
             "launches": 0, "max_abs_err": max_abs, "max_rel_err": max_rel,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
+            "timed_device_ms": device_ms,
+            "library_device_ms": library_device_ms,
             "shape": {"m": m, "n": n, "d": d}}
 
 
@@ -255,7 +276,10 @@ def _qkv(gen, B, S, H, Hkv, d, dtype, dev):
 
 def check_flash(dev, cfg) -> dict:
     """Kernel vs plain at the serving shape (bf16 and fp32) and on random
-    shapes with GQA, ragged S, S = 1 and non-causal masks."""
+    shapes with GQA, ragged S, S = 1 and non-causal masks.  bf16 at d 64
+    and 128 runs ``flash_fwd_wgmma``, the rest ``flash_fwd``; both are
+    timed at the serving shape, each against its bound, its plain version
+    and ``scaled_dot_product_attention`` on the same inputs."""
     gen = torch.Generator(dev).manual_seed(1)
     rng = np.random.default_rng(1)
     B, S, H, d = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
@@ -271,6 +295,10 @@ def check_flash(dev, cfg) -> dict:
                       int(rng.choice([16, 32, 64, 96, 128])),
                       [torch.bfloat16, torch.float32][int(rng.integers(2))],
                       bool(rng.integers(2))))
+    # the tensor-core kernel at d = 128, ragged and non-causal
+    cases += [(1, S, 16, 4, 128, torch.bfloat16, True),
+              (2, 777, 8, 2, 64, torch.bfloat16, False),
+              (3, 193, 6, 2, 128, torch.bfloat16, False)]
     errs = {}
     for b, s, h, hkv, dd, dt, causal in cases:
         q, k, v = _qkv(gen, b, s, h, hkv, dd, dt, dev)
@@ -284,34 +312,76 @@ def check_flash(dev, cfg) -> dict:
         check(bool((diff <= tol + tol * ref.float().abs()).all()),
               f"flash_attention {b, s, h, hkv, dd, dt, causal}: max abs "
               f"err {float(diff.max())} > {tol} (+ rel)")
-        key = str(dt).split(".")[-1]
+        key = ("flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, dd) else
+               f"flash_fwd {str(dt).split('.')[-1]}")
         errs[key] = max(errs.get(key, 0.0), float(diff.max()))
     print(f"flash_attention vs plain on {len(cases)} shapes (serving "
-          f"B={B} S={S} H={H} d={d} bf16 and fp32, GQA, ragged, S=1): max "
-          f"abs err {errs}")
+          f"B={B} S={S} H={H} d={d} bf16 and fp32, GQA, ragged, S=1, d=128, "
+          f"non-causal): max abs err by kernel {errs}")
 
-    q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.bfloat16, dev)
-    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, backend="cuda"),
-                 iters=30, warmup=3)
-    plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5,
-                       warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True),
-                         iters=30, warmup=3)
     # the causal half: S(S+1)/2 (query, key) pairs, 2d flops each for
-    # q kᵀ and for p v; q, k, v read and o written once, in bf16
+    # q kᵀ and for p v; q, k, v read and o written once
     flops = 4.0 * B * H * d * S * (S + 1) / 2
-    nbytes = 2.0 * (2 * B * S * H * d + 2 * B * S * Hkv * d)
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    elems = 2 * B * S * H * d + 2 * B * S * Hkv * d
+    timed = {}
+    for dt, rate in ((torch.bfloat16, BF16_FLOP_PER_S),
+                     (torch.float32, FP32_FLOP_PER_S)):
+        q, k, v = _qkv(gen, B, S, H, Hkv, d, dt, dev)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kern = lambda: fa_ops.flash_attention(q, k, v, backend="cuda")
+        ms = time_ms(kern, iters=30, warmup=3)
+        _, rows = _profiled(lambda: [kern() for _ in range(5)])
+        dev_ms = per_launch_ms(rows, (("k", "flash_fwd"),))["k"]
+        plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5,
+                           warmup=1)
+        library_ms = time_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True),
+                             iters=30, warmup=3)
+        b_ms, b_by = bound_ms(q.element_size() * elems, flops, rate)
+        timed[dt] = (ms, dev_ms, plain_ms, library_ms, b_ms, b_by)
+        name = "flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, d) else "flash_fwd"
+        print(f"flash_attention {str(dt).split('.')[-1]} at the serving "
+              f"shape ({name}): "
+              f"{ms:.5f} ms per call, {dev_ms:.5f} ms device, "
+              f"{flops / ms * 1e-9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
+              f"({b_by}); plain {plain_ms:.5f} ms; "
+              f"scaled_dot_product_attention {library_ms:.5f} ms")
+    # the CUDA-core kernel on the same bf16 inputs, through its C entry
+    # point (the wrapper sends bf16 at d = 64 to the tensor-core kernel)
+    q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.bfloat16, dev)
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    simt_ms = time_ms(lambda: lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        Hkv, d, 1, fa_ops.DTYPE_CODES[torch.bfloat16], stream),
+        iters=30, warmup=3)
+    check(float((out.float() - fa_ops.flash_attention(q, k, v).float())
+                .abs().max()) <= 2 * FLASH_TOL[torch.bfloat16],
+          "flash_fwd and flash_fwd_wgmma agree on bf16")
+    wg_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), iters=30,
+                    warmup=3)
+    print(f"flash_attention bf16, same inputs, one after the other: "
+          f"flash_fwd {simt_ms:.5f} ms, flash_fwd_wgmma {wg_ms:.5f} ms "
+          f"({simt_ms / wg_ms:.2f}x)")
+    ms, dev_ms, plain_ms, library_ms, b_ms, b_by = timed[torch.bfloat16]
+    ms32, dev32, plain32, lib32, b32, by32 = timed[torch.float32]
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-            "launches": 0, "max_abs_err": errs["bfloat16"],
-            "max_abs_err_fp32": errs["float32"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
+            "kernel": "flash_fwd_wgmma",
+            "launches": 0, "max_abs_err": errs["flash_fwd_wgmma"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "tflops": flops / ms * 1e-9, "timed_device_ms": dev_ms,
+            "flash_fwd_bf16_ms": simt_ms,
+            "fp32_kernel": "flash_fwd",
+            "fp32_source": "src/repro_torch/csrc/flash_attention.cu",
+            "max_abs_err_fp32": errs["flash_fwd float32"],
+            "fp32_ms": ms32, "fp32_device_ms": dev32,
+            "fp32_plain_ms": plain32, "fp32_bound_ms": b32,
+            "fp32_bound_by": by32, "fp32_library_ms": lib32,
             "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "d": d,
                       "dtype": "bfloat16", "causal": True}}
 
@@ -574,9 +644,11 @@ def serve_path(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = ssd_ops.launches = 0
+    fa_ops.kernel_launches.update(flash_fwd_wgmma=0, flash_fwd=0)
     res = generate(params, cfg, prompt, SERVE_GEN)
     launches = {"flash_attention": fa_ops.launches,
-                "mamba2_scan": ssd_ops.launches}
+                "mamba2_scan": ssd_ops.launches,
+                "flash_fwd_wgmma": fa_ops.kernel_launches["flash_fwd_wgmma"]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return cfg, params, prompt, res, launches, peak_gb
 
@@ -586,10 +658,11 @@ def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
     n_mamba = cfg.pattern_for_depth().count("mamba")
     check((cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 2048, 32000),
           "zamba2-1.2B at its published width")
-    check(launches == {"flash_attention": n_attn, "mamba2_scan": n_mamba}
-          == {"flash_attention": 6, "mamba2_scan": 32},
-          f"one prefill launches flash_attention 6x and mamba2_scan 32x: "
-          f"{launches}")
+    check(launches == {"flash_attention": n_attn, "mamba2_scan": n_mamba,
+                       "flash_fwd_wgmma": n_attn}
+          == {"flash_attention": 6, "mamba2_scan": 32, "flash_fwd_wgmma": 6},
+          f"one prefill launches flash_attention 6x, all flash_fwd_wgmma, "
+          f"and mamba2_scan 32x: {launches}")
     check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
           and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
           "generated tokens")
@@ -681,8 +754,16 @@ def profile_serve(params, cfg, prompt, res) -> dict:
         for us, count, key in rows[:top]:
             print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
         rows_by_phase[name] = rows
+    counts = {tag: sum(c for _, c, key in rows_by_phase["prefill"]
+                       if tag in key)
+              for tag in ("flash_fwd_wgmma<", "flash_fwd<", "ssd_chunk_scan")}
+    print(f"profile {cfg.name} prefill: kernel launches {counts}")
+    check(counts == {"flash_fwd_wgmma<": 6, "flash_fwd<": 0,
+                     "ssd_chunk_scan": 32},
+          f"the profiled prefill runs flash_fwd_wgmma 6x, flash_fwd never, "
+          f"mamba2_scan 32x: {counts}")
     return per_launch_ms(rows_by_phase["prefill"],
-                         (("flash_attention", "flash_fwd"),
+                         (("flash_attention", "flash_fwd_wgmma<"),
                           ("mamba2_scan", "ssd_chunk_scan")))
 
 
@@ -703,8 +784,12 @@ def main() -> int:
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            entry = re.search(r"entry function '\w*?_cu_[0-9a-f]{8}(\w+)'",
+                              line)
+            if entry:                        # the mangled kernel name
+                print(f"  {name}: {entry.group(1)[:60]}")
+            elif "registers" in line or "spill" in line or "wgmma" in line:
+                print(f"  {name}:   {line.strip()}")
 
     serve_cfg = get_config(SERVE_ARCH)
     kernels = [check_gnn_mp(dev), check_wc_oracle(dev),
@@ -723,6 +808,8 @@ def main() -> int:
     check_serve_path(cfg, params, prompt, res, serve_launches, peak_gb, dev)
     device_ms.update(profile_serve(params, cfg, prompt, res))
 
+    # the flash_attention entry's kernel is flash_fwd_wgmma
+    launches["flash_attention"] = launches.pop("flash_fwd_wgmma")
     for name, k in by_name.items():
         k["launches"] = launches[name]
         k["device_ms"] = device_ms[name]

@@ -22,10 +22,11 @@
 // What bounds it on this card: operations.  At the serving shape (B = 4,
 //   S = 2048, H = 32, d = 64, bf16) the causal half of Q Kᵀ and P V is
 //   6.9e10 flops against 134 MB of q, k, v and o: 0.07 ms at the bf16
-//   tensor-core peak, 0.04 ms at the HBM rate.  This first kernel computes
-//   in fp32 on the CUDA cores (67 TFLOP/s peak), so it sits ~15x above
-//   that bound before any inefficiency; wgmma on bf16 tiles is the
-//   redesign's work.
+//   tensor-core peak, 0.04 ms at the HBM rate.  This kernel computes in
+//   fp32 on the CUDA cores (67 TFLOP/s peak), so it sits ~15x above that
+//   bound before any inefficiency.  bf16 at d = 64 and 128 (the serving
+//   prefill) therefore runs flash_fwd_wgmma (flash_attention_sm90.cu) on
+//   the tensor cores; this kernel serves fp32, fp16 and every other d.
 //
 // What the design does: one block of 256 threads per (b*h, 64-row query
 //   tile); heaviest causal tiles are scheduled first.  The query tile and

@@ -30,6 +30,8 @@ ENTRY_POINTS = {
     "wc_oracle": ("wc_oracle_step", [P, P, P, P, P, P, I, I, I, P]),
     "flash_attention": ("flash_attention_fwd",
                         [P, P, P, P, I, I, I, I, I, I, I, P]),
+    "flash_attention_sm90": ("flash_attention_wgmma_fwd",
+                             [P, P, P, P, I, I, I, I, I, I, P]),
     "mamba2_scan": ("mamba2_scan_fwd",
                     [P] * 7 + [I] * 7 + [I64] * 6 + [P]),
 }

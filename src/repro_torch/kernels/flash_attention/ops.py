@@ -1,10 +1,17 @@
 """Public wrapper: causal flash attention (twin of
 ``repro/kernels/flash_attention/ops.py::flash_attention``).
 
-``flash_attention(q, k, v)`` runs the CUDA kernel
-``csrc/flash_attention.cu`` on CUDA tensors and the plain version
-(ref.py) on CPU tensors or when ``backend="torch"``.  The kernel takes the
-model's (B, S, H, d) layout as it is and maps query head h to KV head
+``flash_attention(q, k, v)`` runs a CUDA kernel on CUDA tensors and the
+plain version (ref.py) on CPU tensors or when ``backend="torch"``.  Which
+kernel is dispatch by dtype and head dim, not a fallback:
+
+- bf16 with d = 64 or 128: ``flash_fwd_wgmma``
+  (``csrc/flash_attention_sm90.cu``), on the tensor cores;
+- every other dtype and d up to 128: ``flash_fwd``
+  (``csrc/flash_attention.cu``), fp32 on the CUDA cores.
+
+Both compute the same function and raise if they cannot launch.  Both take
+the model's (B, S, H, d) layout as it is and map query head h to KV head
 h // G, so the reference wrapper's ``repeat`` of K and V and its transposes
 to (B*H, S, d) have no counterpart here.  Any S is taken (the ragged last
 tile is masked); the reference's Pallas launcher asks for a multiple of
@@ -20,9 +27,18 @@ from .ref import attention_ref
 BACKENDS = ("torch", "cuda")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 128
+WGMMA_HEAD_DIMS = (64, 128)        # bf16 head dims of flash_fwd_wgmma
 
-# kernel launches in this process (read and reset by chip_smoke.py)
+# kernel launches in this process, of either kernel, and of each by name
+# (read and reset by chip_smoke.py)
 launches = 0
+kernel_launches = {"flash_fwd_wgmma": 0, "flash_fwd": 0}
+
+
+def uses_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call on this dtype and head dim runs
+    ``flash_fwd_wgmma`` (else ``flash_fwd``)."""
+    return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -47,13 +63,24 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), B, S, H, Hkv, d,
-                                 int(causal), DTYPE_CODES[q.dtype], stream)
-    _build.check("flash_attention", rc)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if uses_wgmma(q.dtype, d):
+        if any(p % 16 for p in ptrs):          # TMA reads 16-byte aligned
+            raise ValueError("flash_attention: bf16 q, k, v must be "
+                             "16-byte aligned")
+        lib = _build.load("flash_attention_sm90")
+        rc = lib.flash_attention_wgmma_fwd(*ptrs, B, S, H, Hkv, d,
+                                           int(causal), stream)
+        name = "flash_fwd_wgmma"
+    else:
+        lib = _build.load("flash_attention")
+        rc = lib.flash_attention_fwd(*ptrs, B, S, H, Hkv, d, int(causal),
+                                     DTYPE_CODES[q.dtype], stream)
+        name = "flash_fwd"
+    _build.check(name, rc)
     launches += 1
+    kernel_launches[name] += 1
     return out
 
 

@@ -9,8 +9,10 @@ Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive); the
 ``gnn_mp`` segment-sum within 1e-5 of the plain version relative to the
 output's largest magnitude (both sum in fp32, in different orders);
 the oracle's makespans with the kernel equal to the plain path's;
-``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16) and ``mamba2_scan``
-within 1e-4 scaled by max(|ref|, 1), the bars of tests/test_kernels.py.
+``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16), bf16 at d 64 and
+128 on the tensor-core kernel ``flash_fwd_wgmma`` and everything else on
+``flash_fwd``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
+bars of tests/test_kernels.py.
 """
 import numpy as np
 import pytest
@@ -166,6 +168,60 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, d, dtype,
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,causal", [
+    (4, 2048, 32, 32, 64, True),                  # the serving shape
+    (1, 2048, 16, 16, 128, True), (2, 333, 8, 2, 64, True),
+    (2, 333, 8, 2, 128, True), (1, 1, 4, 2, 64, True),
+    (1, 1, 2, 1, 128, False), (3, 193, 6, 2, 128, False),
+    (2, 777, 8, 4, 64, False), (1, 640, 16, 4, 128, True),
+    (2, 129, 4, 1, 64, True)])
+def test_flash_attention_wgmma_kernel_matches_plain(cuda, B, S, Hq, Hkv, d,
+                                                    causal):
+    """bf16 at d 64 and 128 runs flash_fwd_wgmma (the per-kernel counter
+    moves, flash_fwd's does not); 2e-2 against the plain version."""
+    q, k, v = _qkv(cuda, B, S, Hq, Hkv, d, torch.bfloat16, 7 * S + d)
+    before = dict(fa_ops.kernel_launches)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.kernel_launches == {
+        "flash_fwd_wgmma": before["flash_fwd_wgmma"] + 1,
+        "flash_fwd": before["flash_fwd"]}
+    ref = attention_ref(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96),
+                                     (torch.bfloat16, 32),
+                                     (torch.float16, 64),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_flash_attention_other_types_run_flash_fwd(cuda, dtype, d):
+    q, k, v = _qkv(cuda, 2, 200, 4, 2, d, dtype, d)
+    before = dict(fa_ops.kernel_launches)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.kernel_launches == {
+        "flash_fwd_wgmma": before["flash_fwd_wgmma"],
+        "flash_fwd": before["flash_fwd"] + 1}
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_wgmma_rejects_misaligned(cuda):
+    """The tensor maps need 16-byte aligned tensors: a misaligned bf16
+    tensor raises, it does not go to the other kernel."""
+    buf = torch.randn(1 * 64 * 2 * 64 + 1, device=cuda).bfloat16()
+    q = buf[1:].view(1, 64, 2, 64)
+    k = v = q[:, :, :1].contiguous()
+    before = dict(fa_ops.kernel_launches)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, v)
+    assert fa_ops.kernel_launches == before
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):

@@ -9,6 +9,12 @@ ragged S.  The port's own plain
 against the reference's too.  Bars (tests/test_kernels.py): 2e-5 in fp32,
 the per-dtype TOL (2e-2) for bf16 inputs.  The CUDA kernel itself is held
 against the plain version on the card (tests/test_torch_cuda.py).
+
+The tensor-core kernel's arithmetic (``csrc/flash_attention_sm90.cu``:
+bf16 q, k, v; fp32 scores over 128-key tiles with an online max; P split
+into bf16 hi + lo for the P V product; fp32 accumulation; bf16 output) is
+emulated here in torch and held against the reference's ``attention_ref``
+(the emulation is part of this test, not of any path).
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +26,8 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.models import attention as jax_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     uses_wgmma)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import attention
 
@@ -118,3 +125,104 @@ def test_flash_backend_is_checked():
     with pytest.raises(ValueError):
         flash_attention(tq, tk, tv, backend="xla")
     assert jax.default_backend() == "cpu"
+
+
+# ------------------------------------ the tensor-core kernel's numerics
+def _emulate_wgmma_kernel(q, k, v, causal, split=True):
+    """flash_fwd_wgmma's arithmetic in torch: q (B, S, Hq, d), k, v (B, S,
+    Hkv, d) in bf16.  Per 128-key tile: fp32 scores of the bf16 values in
+    log2 units, masked at -1e30; an online max and denominator; P =
+    exp2(s - m) split into bf16 hi + lo, each times the bf16 V tile
+    summed in fp32 (``split=False``: hi only, which the kernel does not
+    do).  -> (B, S, Hq, d): fp32 before the output cast."""
+    B, S, Hq, d = q.shape
+    G = Hq // k.shape[2]
+    qf = q.float().transpose(1, 2)                          # (B, Hq, S, d)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    scale_log2 = np.float32(1.4426950408889634) / np.sqrt(np.float32(d))
+    m = torch.full((B, Hq, S, 1), -1e30)
+    den = torch.zeros(B, Hq, S, 1)
+    acc = torch.zeros(B, Hq, S, d)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, 128):
+        keys = torch.arange(k0, min(k0 + 128, S))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)) * float(scale_log2)
+        if causal:
+            s = torch.where(keys > rows, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        hi = p.bfloat16()
+        lo = (p - hi.float()).bfloat16() if split else torch.zeros_like(hi)
+        vt = vf[:, :, k0:k0 + 128]
+        den = den * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + hi.float() @ vt + lo.float() @ vt
+        m = m_new
+    return (acc / den.clamp_min(1e-30)).transpose(1, 2)
+
+
+def _jax_ref_bshd(q, k, v, causal, dtype):
+    """The reference's attention_ref on (B, S, H, d) numpy arrays (KV heads
+    repeated over their group) in ``dtype``; -> (B, S, Hq, d) float32."""
+    B, S, Hq, d = q.shape
+    G = Hq // k.shape[2]
+    fold = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(
+        B * Hq, S, d), dtype)
+    out = jax_attn_ref(fold(q), fold(np.repeat(k, G, 2)),
+                       fold(np.repeat(v, G, 2)), causal=causal)
+    return np.asarray(out, np.float32).reshape(B, Hq, S, d).transpose(
+        0, 2, 1, 3)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), for x != 0."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(2.0 ** -126))))
+    return np.exp2(e - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,causal", [
+    (2, 256, 4, 2, 64, True), (1, 200, 4, 2, 64, False),
+    (2, 129, 6, 3, 128, True), (1, 1, 2, 1, 64, True),
+    (1, 1, 2, 2, 128, False), (1, 300, 2, 1, 128, False),
+    (1, 384, 8, 2, 64, True), (3, 77, 4, 4, 64, True)])
+def test_wgmma_numerics_scheme_matches_reference(B, S, Hq, Hkv, d, causal):
+    """fp32 before the cast within 1e-5 of max(|ref|, 1).  After the bf16
+    cast: no further from the fp32 reference than the reference's own
+    bf16 rounding plus one bf16 ulp (at the output's largest magnitude),
+    and each element at most one bf16 rounding step from the reference's
+    bf16 output (plus the fp32 allowance, for elements near zero)."""
+    (q, k, v), (tq, tk, tv) = _inputs(B, S, Hq, Hkv, d, "bfloat16",
+                                      3 * S + d)
+    arrs = [np.asarray(x, np.float32) for x in (q, k, v)]
+    ref32 = _jax_ref_bshd(*arrs, causal, jnp.float32)
+    ref16 = _jax_ref_bshd(*arrs, causal, jnp.bfloat16)
+    emu32 = _emulate_wgmma_kernel(tq, tk, tv, causal).numpy()
+    tol32 = 1e-5 * max(np.abs(ref32).max(), 1.0)
+    assert np.abs(emu32 - ref32).max() <= tol32
+    emu16 = torch.from_numpy(emu32).bfloat16().float().numpy()
+    own = np.abs(ref16 - ref32).max()
+    assert (np.abs(emu16 - ref32).max()
+            <= own + _bf16_ulp(np.abs(ref32).max()))
+    assert (np.abs(emu16 - ref16) <= _bf16_ulp(ref32) + tol32).all()
+
+
+def test_wgmma_numerics_need_the_lo_term():
+    """The hi + lo split is what keeps P fp32 in meaning: with P as one
+    bf16 term the error before the cast is far above 1e-5."""
+    (q, k, v), (tq, tk, tv) = _inputs(1, 512, 2, 1, 64, "bfloat16", 9)
+    ref32 = _jax_ref_bshd(*[np.asarray(x, np.float32) for x in (q, k, v)],
+                          True, jnp.float32)
+    split = _emulate_wgmma_kernel(tq, tk, tv, True).numpy()
+    single = _emulate_wgmma_kernel(tq, tk, tv, True, split=False).numpy()
+    assert np.abs(split - ref32).max() <= 1e-5
+    assert np.abs(single - ref32).max() > 1e-4
+
+
+@pytest.mark.parametrize("dtype,d,expect", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 96, False), (torch.bfloat16, 32, False),
+    (torch.float16, 64, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_flash_dispatch_by_dtype_and_head_dim(dtype, d, expect):
+    assert uses_wgmma(dtype, d) is expect
