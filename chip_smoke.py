@@ -27,8 +27,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    fp32 the CUDA-core ``flash_fwd``; both are timed, the first also
    against ``flash_fwd`` on the same bf16 inputs;
    ``mamba2_scan`` (y and final state within 1e-4 of max(|ref|, 1)) at
-   the serving shape B*H=64, S=2048, N=64, P=256, chunk 256 and on random
-   ragged shapes with initial states.
+   the serving shape B*H=64, S=2048, N=64, P=256, chunk 256 (with and
+   without an initial state) and on P and chunk 100, N 50, S 1, q and k
+   shared over heads or per head, and random ragged shapes; one call runs
+   four kernels (``ssd_qk_scores``, ``ssd_chunk_state``,
+   ``ssd_state_pass``, ``ssd_chunk_y``), each timed in device time under
+   the profiler, beside the fp32 bound and the tensor-core bound of the
+   work the design issues.
 4. placement path: three placement requests through ``DopplerTrainer(...,
    device="cuda")`` at the policy's published width (d_hidden 64, d_z 32,
    d_y 32, 2 GNN layers, random weights from a seed): greedy plus 256
@@ -42,9 +47,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``repro_torch.launch.serve``'s functions: batch 4 x prompt 2048, then 32
    greedy tokens.  One prefill must launch ``flash_attention`` 6 times, all
    of them ``flash_fwd_wgmma`` (launch counters and profiler), and
-   ``mamba2_scan`` 32 times.  The kernel path's logits (prefill and 32
-   teacher-forced decode steps) agree with the plain path's on the card,
-   in bf16 over 38 layers and in fp32 over one full-width 6-layer unit.
+   ``mamba2_scan`` 32 times: each of its four kernels 32 times under the
+   profiler, the old ``ssd_chunk_scan`` never.  The kernel path's logits
+   (prefill and 32 teacher-forced decode steps) agree with the plain
+   path's on the card, in bf16 over 38 layers and in fp32 over one
+   full-width 6-layer unit.
    Prints prefill s, decode ms per step, tokens per second and peak
    memory; then one more prefill and one decode step under
    ``torch.profiler``.
@@ -98,6 +105,7 @@ from repro_torch.models.transformer import init_decode_state  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # tensor cores, dense
+TF32_FLOP_PER_S = 495e12           # tensor cores, dense
 K_POP = 256
 EPS = 0.2
 REQUESTS = [("llama_layer", "v100x8"), ("llama_block", "mixed_gen4"),
@@ -387,60 +395,105 @@ def check_flash(dev, cfg) -> dict:
 
 
 # ------------------------------------------------------- mamba2_scan
-def _ssd_inputs(gen, B, S, H, N, P, dev, state=False):
-    """mamba2_forward's layout: one (B, S, N) q and k broadcast over the
-    heads (head stride 0), log decay -softplus(.) <= 0."""
+def _ssd_inputs(gen, B, S, H, N, P, dev, state=False, shared=True):
+    """mamba2_forward's layout by default: one (B, S, N) q and k broadcast
+    over the heads (head stride 0); ``shared=False``: per-head q and k.
+    Log decay -softplus(.) <= 0."""
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    q = rn(B, S, 1, N).expand(B, S, H, N)
-    k = rn(B, S, 1, N).expand(B, S, H, N)
+    if shared:
+        q = rn(B, S, 1, N).expand(B, S, H, N)
+        k = rn(B, S, 1, N).expand(B, S, H, N)
+    else:
+        q, k = rn(B, S, H, N), rn(B, S, H, N)
     v = rn(B, S, H, P)
     log_a = -torch.nn.functional.softplus(rn(B, S, H))
     return q, k, v, log_a, (rn(B, H, P, N) if state else None)
 
 
+def ssd_work(B, S, H, N, P, L, shared=True) -> tuple[float, float]:
+    """Flops and bytes of one ``ssd_scan`` call as its kernels tile it
+    (csrc/mamba2_scan.cu): 64 x 64 score tiles (the lower ones of each
+    chunk, once per batch row when q and k are shared), per-chunk states
+    over 128 columns of P, and 64 x 128 output tiles over the key tiles up
+    to the diagonal, each product over a depth of 64; tiles past S are
+    skipped.  Bytes: inputs read and outputs written once, the scores
+    scratch written and read, the chunk-states scratch written, read and
+    written, read.  -> (flops before the 3xTF32 split, bytes)."""
+    T, PT = ssd_ops.TILE, 2 * ssd_ops.TILE
+    nt, nc = -(-L // T), -(-S // L)
+    p_tiles, n_g = -(-P // PT), B if shared else B * H
+    scores = state = out = 0
+    for c in range(nc):
+        live = [ti for ti in range(nt) if c * L + ti * T < S]
+        scores += sum(ti + 1 for ti in live)
+        state += len(live)
+        out += sum(ti + 2 for ti in live)    # the q stateᵀ tile and keys
+    tile = 2.0 * T * T * T
+    flops = (n_g * scores * tile + B * H * p_tiles * 2 * (state + out)
+             * tile)
+    qk = 2 * (B * S * N if shared else B * S * H * N)
+    io = qk + 2 * B * S * H * P + B * H * nc * L + 2 * B * H * P * N
+    scratch = (2 * n_g * nc * nt * (nt + 1) // 2 * T * T
+               + 4 * B * H * nc * P * N)
+    return flops, 4.0 * (io + scratch)
+
+
 def check_mamba2(dev, cfg) -> dict:
     """Kernel vs plain (y and the final state) at the serving shape and on
-    random shapes with ragged S, S = 1 and a nonzero initial state."""
+    shapes with P and chunk not multiples of 8, N 50, S = 1, per-head and
+    shared q and k, ragged S and a nonzero initial state.  Times the call,
+    and each of its kernels in device time under the profiler."""
     gen = torch.Generator(dev).manual_seed(2)
     rng = np.random.default_rng(2)
     ssm = cfg.ssm
     B, S, H, N = SERVE_BATCH, SERVE_PROMPT, ssm.n_heads, ssm.state_dim
     P, L = ssm.expand * cfg.d_model // H, ssm.chunk
-    cases = [(B, S, H, N, P, L, False), (B, S, H, N, P, L, True),
-             (1, 1, 2, 64, 256, 256, True), (2, 777, 3, 64, 256, 256, True)]
+    cases = [(B, S, H, N, P, L, False, True), (B, S, H, N, P, L, True, True),
+             (1, 1, 2, 64, 256, 256, True, True),
+             (2, 777, 3, 64, 256, 256, True, True),
+             (2, 300, 2, 50, 100, 100, True, False),
+             (1, 1, 3, 50, 100, 100, False, False),
+             (2, 1000, 4, 64, 256, 256, True, False)]
     for _ in range(6):
         cases.append((int(rng.integers(1, 4)), int(rng.integers(1, 700)),
                       int(rng.integers(1, 5)),
                       int(rng.choice([8, 16, 50, 64])),
                       int(rng.choice([16, 64, 100, 256])),
                       int(rng.choice([8, 64, 100, 256])),
-                      bool(rng.integers(2))))
+                      bool(rng.integers(2)), bool(rng.integers(2))))
     max_err = 0.0
-    for b, s, h, n, p, L_, st in cases:
-        q, k, v, log_a, st0 = _ssd_inputs(gen, b, s, h, n, p, dev, st)
+    for b, s, h, n, p, L_, st, sh in cases:
+        q, k, v, log_a, st0 = _ssd_inputs(gen, b, s, h, n, p, dev, st, sh)
         y, fin = ssd_ops.ssd_scan(q, k, v, log_a, L_, st0, backend="cuda")
         y_r, fin_r = ssd_scan_ref(q, k, v, log_a, L_, st0)
         torch.cuda.synchronize()
         for what, got, ref in (("y", y, y_r), ("state", fin, fin_r)):
             err = scaled_err(got, ref)
-            check(err <= SSD_TOL, f"mamba2_scan {what} {b, s, h, n, p, L_, st}"
-                                  f": scaled err {err} > {SSD_TOL}")
+            check(err <= SSD_TOL, f"mamba2_scan {what} "
+                                  f"{b, s, h, n, p, L_, st, sh}: scaled err "
+                                  f"{err} > {SSD_TOL}")
             max_err = max(max_err, float((got - ref).abs().max()))
     print(f"mamba2_scan vs plain on {len(cases)} shapes (serving B={B} "
-          f"S={S} H={H} N={N} P={P} L={L}, ragged, S=1, initial state): y "
-          f"and state within {SSD_TOL} of max(|ref|, 1); max abs err "
-          f"{max_err}")
+          f"S={S} H={H} N={N} P={P} L={L} with and without an initial "
+          f"state, P and chunk 100, N 50, S=1, shared and per-head q and k, "
+          f"ragged): y and state within {SSD_TOL} of max(|ref|, 1); max abs "
+          f"err {max_err}")
 
     q, k, v, log_a, st0 = _ssd_inputs(gen, B, S, H, N, P, dev)
     st0 = torch.zeros(B, H, P, N, device=dev)       # prefill's initial state
-    ms = time_ms(lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0,
-                                          backend="cuda"), iters=30, warmup=3)
+    kern = lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0, backend="cuda")
+    ms = time_ms(kern, iters=30, warmup=3)
+    calls = 10
+    _, rows = _profiled(lambda: [kern() for _ in range(calls)])
+    by_kernel = {name: sum(us for us, _, key in rows if name in key)
+                 * 1e-3 / calls for name in ssd_ops.KERNELS}
+    dev_ms = sum(by_kernel.values())
     plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, log_a, L, st0),
                        iters=5, warmup=1)
-    # per (b, chunk): the causal pairs' q.k (2N), once, since q and k are
-    # one tensor broadcast over the heads.  Per (b*h, chunk): decay (1)
-    # and p v (2P); q stateᵀ (2LNP) and its scale (LP); the update
-    # (2LNP + LP + 2PN)
+    # the fp32 bound, unchanged.  Per (b, chunk): the causal pairs'
+    # q.k (2N), once, since q and k are one tensor broadcast over the
+    # heads.  Per (b*h, chunk): decay (1) and p v (2P); q stateᵀ (2LNP)
+    # and its scale (LP); the update (2LNP + LP + 2PN)
     pairs = L * (L + 1) / 2
     per_head = pairs * (2 * P + 1) + 4 * L * N * P + 2 * L * P + 2 * P * N
     flops = B * (S // L) * (pairs * 2 * N + H * per_head)
@@ -449,12 +502,26 @@ def check_mamba2(dev, cfg) -> dict:
     nbytes = 4.0 * (2 * B * S * N + B * S * H * P + B * S * H
                     + 2 * B * H * P * N + B * S * H * P)
     b_ms, b_by = bound_ms(nbytes, flops)
+    # the tensor-core bound of the work the kernels issue: 3xTF32 triples
+    # their tiles' flops; the scratch counts in the bytes
+    tc_flops, tc_bytes = ssd_work(B, S, H, N, P, L)
+    tc_ms, tc_by = bound_ms(tc_bytes, 3 * tc_flops, TF32_FLOP_PER_S)
+    print(f"mamba2_scan at the serving shape: {ms:.5f} ms per call, "
+          f"{dev_ms:.5f} ms device per call ("
+          + ", ".join(f"{n} {t:.5f}" for n, t in by_kernel.items())
+          + f"), {flops / ms * 1e-9:.1f} TFLOP/s useful; fp32 bound "
+          f"{b_ms:.5f} ms ({b_by}); tensor-core bound of the "
+          f"{3 * tc_flops:.4g} flops and {tc_bytes / 1e6:.1f} MB issued "
+          f"{tc_ms:.5f} ms ({tc_by}); plain {plain_ms:.5f} ms")
     return {"name": "mamba2_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/mamba2_scan.cu",
             "replaces": "src/repro/kernels/mamba2_scan/kernel.py:26",
+            "kernels": list(ssd_ops.KERNELS),
             "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "timed_device_ms": dev_ms, "timed_device_ms_by_kernel": by_kernel,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
+            "tc_flops_issued": 3 * tc_flops, "library_ms": None,
             "shape": {"B": B, "S": S, "H": H, "N": N, "P": P, "chunk": L}}
 
 
@@ -754,17 +821,25 @@ def profile_serve(params, cfg, prompt, res) -> dict:
         for us, count, key in rows[:top]:
             print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
         rows_by_phase[name] = rows
-    counts = {tag: sum(c for _, c, key in rows_by_phase["prefill"]
-                       if tag in key)
-              for tag in ("flash_fwd_wgmma<", "flash_fwd<", "ssd_chunk_scan")}
+    pre = rows_by_phase["prefill"]
+    tags = ("flash_fwd_wgmma<", "flash_fwd<", "ssd_chunk_scan",
+            *ssd_ops.KERNELS)
+    counts = {tag: sum(c for _, c, key in pre if tag in key) for tag in tags}
     print(f"profile {cfg.name} prefill: kernel launches {counts}")
     check(counts == {"flash_fwd_wgmma<": 6, "flash_fwd<": 0,
-                     "ssd_chunk_scan": 32},
+                     "ssd_chunk_scan": 0,
+                     **{name: 32 for name in ssd_ops.KERNELS}},
           f"the profiled prefill runs flash_fwd_wgmma 6x, flash_fwd never, "
-          f"mamba2_scan 32x: {counts}")
-    return per_launch_ms(rows_by_phase["prefill"],
-                         (("flash_attention", "flash_fwd_wgmma<"),
-                          ("mamba2_scan", "ssd_chunk_scan")))
+          f"each mamba2_scan kernel 32x, ssd_chunk_scan never: {counts}")
+    per = per_launch_ms(pre, (("flash_attention", "flash_fwd_wgmma<"),
+                              *((n, n) for n in ssd_ops.KERNELS)))
+    by_kernel = {n: per.pop(n) for n in ssd_ops.KERNELS}
+    # one mamba2_scan call launches each of its kernels once
+    per["mamba2_scan"] = sum(by_kernel.values())
+    print(f"profile {cfg.name} prefill: mamba2_scan device ms per call "
+          f"{per['mamba2_scan']:.5f} = "
+          + " + ".join(f"{n} {t:.5f}" for n, t in by_kernel.items()))
+    return per, by_kernel
 
 
 def main() -> int:
@@ -806,7 +881,9 @@ def main() -> int:
     cfg, params, prompt, res, serve_launches, peak_gb = serve_path(dev)
     launches.update(serve_launches)
     check_serve_path(cfg, params, prompt, res, serve_launches, peak_gb, dev)
-    device_ms.update(profile_serve(params, cfg, prompt, res))
+    serve_ms, ssd_by_kernel = profile_serve(params, cfg, prompt, res)
+    device_ms.update(serve_ms)
+    by_name["mamba2_scan"]["device_ms_by_kernel"] = ssd_by_kernel
 
     # the flash_attention entry's kernel is flash_fwd_wgmma
     launches["flash_attention"] = launches.pop("flash_fwd_wgmma")

@@ -2,7 +2,7 @@
 ``repro/kernels/mamba2_scan/ops.py::ssd_scan``, which also returns the
 carried state here).
 
-``ssd_scan(q, k, v, log_a, chunk, state)`` runs the CUDA kernel
+``ssd_scan(q, k, v, log_a, chunk, state)`` runs the CUDA kernels of
 ``csrc/mamba2_scan.cu`` on CUDA tensors and the plain version (ref.py) on
 CPU tensors or when ``backend="torch"``.  As in the reference launcher,
 the within-chunk cumulative sum of ``log_a`` is taken here, outside the
@@ -11,6 +11,12 @@ kernel treats q, k and v past S as that same zero padding, so a ragged S
 needs no padded copy of them.  q and k are read through their strides:
 ``mamba2_forward`` passes one (B, S, N) tensor broadcast over the heads
 (head stride 0), which is never materialised.
+
+One call launches four passes (``KERNELS``, in order): the q kᵀ scores
+(once per batch row when q and k are broadcast over the heads, else once
+per head), the per-chunk states, the state chain over the chunks, and the
+chunk outputs.  The wrapper allocates their scratch: the scores' lower
+64 x 64 tiles and the (B*H, n_chunks, P, N) chunk states.
 """
 from __future__ import annotations
 
@@ -22,8 +28,13 @@ from .ref import ssd_scan_ref
 
 BACKENDS = ("torch", "cuda")
 MAX_STATE_DIM = 64
+TILE = 64                    # the kernels' tile of positions
+# the kernels one call launches, in order (profiler names)
+KERNELS = ("ssd_qk_scores", "ssd_chunk_state", "ssd_state_pass",
+           "ssd_chunk_y")
 
-# kernel launches in this process (read and reset by chip_smoke.py)
+# ssd_scan calls that launched the kernels, in this process (read and
+# reset by chip_smoke.py)
 launches = 0
 
 
@@ -66,14 +77,22 @@ def _launch(q, k, v, log_a, chunk, state):
     if S == 0 or P == 0 or B * H == 0:
         return y, (st.zero_() if state is None else st.copy_(state))
     cum = chunk_cumsum(log_a, chunk)
+    n_chunks = cum.shape[1] // chunk
+    shared = q.stride(2) == 0 and k.stride(2) == 0
+    nt = -(-chunk // TILE)
+    scores = torch.empty((B if shared else B * H) * n_chunks
+                         * (nt * (nt + 1) // 2) * TILE * TILE,
+                         dtype=torch.float32, device=q.device)
+    states = torch.empty(B * H * n_chunks * P * N, dtype=torch.float32,
+                         device=q.device)
     lib = _build.load("mamba2_scan")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mamba2_scan_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cum.data_ptr(),
         0 if state is None else state.data_ptr(), y.data_ptr(),
-        st.data_ptr(), B, S, H, N, P, chunk, cum.shape[1] // chunk,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-        k.stride(2), stream)
+        st.data_ptr(), scores.data_ptr(), states.data_ptr(), B, S, H, N, P,
+        chunk, n_chunks, int(shared), q.stride(0), q.stride(1),
+        q.stride(2), k.stride(0), k.stride(1), k.stride(2), stream)
     _build.check("mamba2_scan", rc)
     launches += 1
     return y, st

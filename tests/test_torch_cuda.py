@@ -259,12 +259,21 @@ def _ssd_inputs(cuda, B, S, H, N, P, seed, shared_qk=False, state=False):
                                             False),
     (2, 200, 2, 64, 256, 64, True, True), (1, 1, 2, 8, 64, 8, True, False),
     (2, 37, 3, 5, 70, 16, False, True), (1, 300, 2, 64, 96, 256, True,
-                                         False)])
+                                         False),
+    (2, 300, 2, 16, 100, 100, False, True),    # P, chunk not multiples of 8
+    (2, 300, 2, 16, 100, 100, True, False),
+    (1, 200, 3, 50, 64, 64, True, True), (2, 129, 2, 50, 256, 256, False,
+                                          True),    # N 50
+    (1, 1, 3, 50, 100, 100, False, True), (2, 1, 2, 64, 256, 256, True,
+                                           True),   # S 1
+    (4, 2048, 16, 64, 256, 256, True, True)])       # serving, state in
 def test_mamba2_scan_kernel_matches_plain(cuda, B, S, H, N, P, chunk, shared,
                                           state):
     """y and the final state within 1e-4 of the plain version, scaled by
     max(|ref|, 1) (tests/test_kernels.py's bar); ragged S, S = 1, head
-    stride 0 and a nonzero initial state included."""
+    stride 0 and per-head q and k, P and chunk 100, N 50, the serving
+    shape and a nonzero initial state included.  One call counts one
+    launch, whatever the number of kernels it runs."""
     q, k, v, log_a, st = _ssd_inputs(cuda, B, S, H, N, P, B * S + N,
                                      shared, state)
     before = ssd_ops.launches
