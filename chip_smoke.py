@@ -16,10 +16,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    the same function, that call:
    ``gnn_mp`` (max relative error <= 1e-5) at the placement path's shapes
    and on a ~10^6-edge random graph (yardstick ``index_add_``, also in
-   device time under the profiler);
-   ``wc_oracle`` bit-exact on run_out and e1 (rho where alive) at the
-   placement shape B=257, R=72, K=8 and random shapes with drained,
-   all-dropped and tied rows;
+   device time under the profiler, beside an empty kernel's launch);
+   ``wc_oracle``'s per-trip kernel ``wc_step`` bit-exact on run_out and e1
+   (rho where alive) at the placement shape B=257, R=72, K=8 and random
+   shapes with drained, all-dropped and tied rows;
    ``flash_attention`` (2e-5 in fp32, 2e-2 in bf16) at the serving shape
    B=4, S=2048, H=32, d=64 in bf16 and fp32 and on random GQA, ragged
    and non-causal shapes (yardstick ``scaled_dot_product_attention``):
@@ -37,11 +37,18 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. placement path: three placement requests through ``DopplerTrainer(...,
    device="cuda")`` at the policy's published width (d_hidden 64, d_z 32,
    d_y 32, 2 GNN layers, random weights from a seed): greedy plus 256
-   samples at eps 0.2, scored in one ``wc_oracle`` batch.  The population's
-   makespans with the kernel equal the plain oracle's on the card; on the
-   small request they also equal the CPU oracle's and the card's
-   encodings agree with the CPU's.  Then one more ``llama_layer`` request
-   under ``torch.profiler``.
+   samples at eps 0.2, scored in one oracle batch: exactly one launch of
+   ``wc_oracle``'s ``wc_trips`` (every trip of every episode) and none of
+   ``wc_step`` per request.  The population's makespans with the kernel
+   equal the plain oracle's on the card; on the small request they also
+   equal the CPU oracle's and the card's encodings agree with the CPU's.
+   Then ``wc_trips`` bit-equal (ms, n_done) to its plain version, the trip
+   loop, on the three requests' candidate batches, random assignments on
+   every workload x fleet preset, a fan-out of 70, one device, a batch of
+   one and a deadlocked batch, in both placements of its state (shared
+   memory, global scratch; llama_layer x tpu_v5e_16x16 takes the scratch
+   by itself), timed at llama_layer's batch against the plain loop.  Then
+   one more ``llama_layer`` request under ``torch.profiler``.
 5. serving path: zamba2-1.2B at full width (38 layers, d_model 2048, vocab
    32,000; random seed-0 weights in bf16) through
    ``repro_torch.launch.serve``'s functions: batch 4 x prompt 2048, then 32
@@ -51,12 +58,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    profiler, the old ``ssd_chunk_scan`` never.  The kernel path's logits
    (prefill and 32 teacher-forced decode steps) agree with the plain
    path's on the card, in bf16 over 38 layers and in fp32 over one
-   full-width 6-layer unit.
+   full-width 6-layer unit; beside the fp32 38-layer gate, both paths'
+   error against the plain path run in float64 is printed.
    Prints prefill s, decode ms per step, tokens per second and peak
    memory; then one more prefill and one decode step under
    ``torch.profiler``.
    On each path the launch counts are reset just before it is driven and
-   read just after; every kernel must have launched on its path.
+   read just after; every Pallas kernel must have a port that launched on
+   its path.
 6. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
@@ -78,12 +87,16 @@ import torch  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.assign import build_graph_data, encode  # noqa: E402
 from repro_torch.core.device import sync  # noqa: E402
-from repro_torch.core.devices import get_device_model  # noqa: E402
+from repro_torch.core.devices import (PRESETS,  # noqa: E402
+                                      get_device_model, uniform_box)
+from repro_torch.core.graph import DataflowGraph  # noqa: E402
 from repro_torch.core.heuristics import critical_path_assignment  # noqa: E402
 from repro_torch.core.nn import tree_map  # noqa: E402
-from repro_torch.core.sim_torch import TorchWCEngine  # noqa: E402
+from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
+                                        TorchWCEngine, trip_inputs)
 from repro_torch.core.training import DopplerTrainer  # noqa: E402
-from repro_torch.graphs.workloads import get_workload  # noqa: E402
+from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
+                                          list_workloads)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -94,7 +107,8 @@ from repro_torch.kernels.gnn_mp.ref import (build_csr,  # noqa: E402
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
-from repro_torch.kernels.wc_oracle.ref import wc_step_ref  # noqa: E402
+from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
+                                               wc_trips_ref)
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
                                       prompt_tokens)
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
@@ -160,7 +174,39 @@ def scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
         float(ref.abs().max()), 1.0)
 
 
+def scaled_err64(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """``scaled_err`` against a float64 reference, computed in fp64."""
+    ref = ref.double()
+    return float((got.double() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1.0)
+
+
 # ------------------------------------------------------------- gnn_mp
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_kernel():
+    """An empty kernel, built like the port's kernels, as a yardstick of
+    one launch's device time; -> its launcher (stream -> cudaError)."""
+    import ctypes
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "empty_kernel.cu"
+    so = _build.BUILD_DIR / "empty_kernel.so"
+    cu.write_text(EMPTY_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(so)).launch_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    return fn
+
+
 def check_gnn_mp(dev) -> dict:
     """Kernel vs plain at the main path's aggregations (llama_layer's two
     edge directions, d = 64) and on a random 2^20-edge graph."""
@@ -202,12 +248,20 @@ def check_gnn_mp(dev) -> dict:
     _, lib_rows = _profiled(lambda: [library() for _ in range(calls)])
     _, k_rows = _profiled(lambda: [gnn_ops.segment_sum(
         msg, idx, n, backend="cuda", csr=csr) for _ in range(calls)])
+    # the floor of one launch: an empty kernel, timed the same way
+    empty = empty_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, empty_rows = _profiled(lambda: [_build.check("empty", empty(stream))
+                                       for _ in range(calls)])
     library_device_ms = sum(r[0] for r in lib_rows) * 1e-3 / calls
+    empty_device_ms = sum(r[0] for r in empty_rows) * 1e-3 / calls
     device_ms = per_launch_ms(k_rows, (("k", "segment_sum_csr"),))["k"]
     print(f"gnn_mp m={m} n={n} d={d}: device ms per call: kernel "
           f"{device_ms:.6f}, index_add_ {library_device_ms:.6f} ("
           + ", ".join(f"{c // calls} x {key[:40]}" for _, c, key in lib_rows)
-          + ")")
+          + f"), empty kernel {empty_device_ms:.6f} ("
+          + ", ".join(f"{c // calls} x {key[:40]}"
+                      for _, c, key in empty_rows) + ")")
     nbytes = 4 * (m * d + m + (n + 1) + n * d)    # msg, perm, row_ptr, out
     b_ms, b_by = bound_ms(nbytes, m * d)
     return {"name": "gnn_mp", "route": "cuda",
@@ -218,6 +272,7 @@ def check_gnn_mp(dev) -> dict:
             "bound_by": b_by, "library_ms": library_ms,
             "timed_device_ms": device_ms,
             "library_device_ms": library_device_ms,
+            "empty_kernel_device_ms": empty_device_ms,
             "shape": {"m": m, "n": n, "d": d}}
 
 
@@ -264,6 +319,9 @@ def check_wc_oracle(dev) -> dict:
     run, rows, ridx = _wc_state(rng, B, R, K, dev)
     ms = time_ms(lambda: wc_ops.wc_step(run, rows, ridx, backend="cuda"))
     plain_ms = time_ms(lambda: wc_step_ref(run, rows, ridx))
+    _, rows_p = _profiled(lambda: [wc_ops.wc_step(run, rows, ridx)
+                                   for _ in range(20)])
+    device_ms = per_launch_ms(rows_p, (("k", "wc_step("),))["k"]
     # each input read once, each output written once; compares/selects:
     # K target tests per row, then ~14 per row for the four chained mins
     nbytes = 4 * B * (2 * R * 6 + K * 6 + K + 2)
@@ -271,9 +329,149 @@ def check_wc_oracle(dev) -> dict:
     return {"name": "wc_oracle", "route": "cuda",
             "source": "src/repro_torch/csrc/wc_oracle.cu",
             "replaces": "src/repro/kernels/wc_oracle/kernel.py:41",
-            "launches": 0, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": {"B": B, "R": R, "K": K}}
+            "kernel": "wc_step", "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "timed_device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"B": B, "R": R, "K": K}}
+
+
+# ---------------------------------------------------- wc_oracle trips
+def fanout_graph(width: int = 70) -> DataflowGraph:
+    """A hub feeding ``width`` consumers that all feed one join: C = width,
+    so ``wc_trips``'s readiness and candidate lists span several 32-lane
+    chunks (tests/test_torch_wc_trips.py holds the same graph on the CPU)."""
+    g = DataflowGraph(f"fanout{width}")
+    x = g.add_vertex("input", out_bytes=4e6)
+    hub = g.add_vertex("matmul", flops=2e9, out_bytes=8e6)
+    join = g.add_vertex("sum_reduction", flops=1e6, out_bytes=1e6)
+    g.add_edge(x, hub)
+    for i in range(width):
+        v = g.add_vertex("matmul", flops=1e8 * (1 + i % 7),
+                         out_bytes=1e5 * (1 + i % 3))
+        g.add_edge(hub, v)
+        g.add_edge(v, join)
+    return g.freeze()
+
+
+def trips_placements(sg) -> tuple:
+    nbytes = wc_ops.episode_bytes(sg.n, sg.esrc.shape[0], sg.R, sg.K)
+    auto = wc_ops.placement(nbytes, sg.esrc.device)
+    return (auto,) if auto == "global" else ("shared", "global")
+
+
+def check_trips(sg, A, what: str) -> tuple:
+    """wc_trips == wc_trips_ref, bit for bit on ms and n_done (so on ok),
+    in every placement the state allows; -> (ok (B,), placements)."""
+    args = trip_inputs(sg, torch.as_tensor(A, device=sg.esrc.device))
+    ms_r, nd_r = wc_trips_ref(sg, *args)
+    places = trips_placements(sg)
+    for where in places:
+        ms_k, nd_k = wc_ops.wc_trips(sg, *args, where=where)
+        torch.cuda.synchronize()
+        check(torch.equal(ms_k, ms_r) and torch.equal(nd_k, nd_r),
+              f"wc_trips == plain on {what} ({where}): ms max abs diff "
+              f"{float((ms_k - ms_r).abs().max())}, n_done differs in "
+              f"{int((nd_k != nd_r).sum())} episodes")
+    return nd_r == sg.n_compute, places
+
+
+def check_wc_trips(dev, trainers, answers) -> dict:
+    """``wc_trips`` against its plain version (the trip loop) on the three
+    requests' candidate batches, random assignments on every suite x
+    fleet pair, a fan-out of 70, a deadlocked batch and a batch of one;
+    states that fit shared memory also run in the global-scratch
+    placement, and llama_layer x tpu_v5e_16x16 (R = 65,792) takes it by
+    itself.  Times the kernel and the plain loop at llama_layer's batch."""
+    rng = np.random.default_rng(5)
+    seen = {"shared": 0, "global": 0}
+    n_batches = n_episodes = 0
+
+    def run(sg, A, what, expect_ok=True):
+        nonlocal n_batches, n_episodes
+        ok, places = check_trips(sg, A, what)
+        check(bool(ok.all()) if expect_ok else not bool(ok.any()),
+              f"wc_trips ok flags on {what}")
+        for where in places:
+            seen[where] += 1
+        n_batches += 1
+        n_episodes += len(A)
+        return sg
+
+    batches = []
+    for (gname, fleet), tr, pl in zip(REQUESTS, trainers, answers):
+        cands = np.concatenate([pl.greedy[None], pl.population])
+        batches.append(run(SimGraph.build(tr.g, tr.dev, dev), cands,
+                           f"the {gname} request's {len(cands)} candidates"))
+    for gname in list_workloads():
+        g = get_workload(gname)
+        for fleet in sorted(PRESETS):
+            fm = get_device_model(fleet)
+            B = 4 if fm.n > 16 else 32
+            run(SimGraph.build(g, fm, dev), rng.integers(0, fm.n, (B, g.n)),
+                f"{gname} x {fleet}, {B} random")
+    big = SimGraph.build(get_workload("llama_layer"),
+                         get_device_model("tpu_v5e_16x16"), dev)
+    check(trips_placements(big) == ("global",),
+          "llama_layer x tpu_v5e_16x16 takes the global placement")
+    g = fanout_graph()
+    run(SimGraph.build(g, get_device_model("v100x8"), dev),
+        rng.integers(0, 8, (64, g.n)), "fanout70 x v100x8, 64 random")
+    g = get_workload("ffnn")
+    run(SimGraph.build(g, uniform_box(1), dev), np.zeros((3, g.n), np.int64),
+        "ffnn on one device (R = 2)")
+    run(batches[0], np.asarray(answers[0].greedy)[None],
+        "llama_layer, a batch of one")
+    # a corrupted indegree: the heap drains early, every episode not ok
+    g = get_workload("llama_block")
+    sg = SimGraph.build(g, get_device_model("mixed_gen4"), dev)
+    need0 = sg.need0.clone()
+    need0[int(torch.nonzero(need0 > 0)[0])] = 99
+    run(dataclasses.replace(sg, need0=need0), rng.integers(0, 4, (16, g.n)),
+        "a deadlocked llama_block batch", expect_ok=False)
+    print(f"wc_trips bit-equal to the plain trip loop (ms, n_done) on "
+          f"{n_batches} batches, {n_episodes} episodes; placements run "
+          f"{seen}")
+
+    # timing at llama_layer's batch (the main path's first request)
+    sg = batches[0]
+    pl = answers[0]
+    A = torch.as_tensor(np.concatenate([pl.greedy[None], pl.population]),
+                        device=dev)
+    args = trip_inputs(sg, A)
+    B, N = args[0].shape
+    mm = N - sg.n
+    kern = lambda: wc_ops.wc_trips(sg, *args)
+    ms = time_ms(kern, iters=20, warmup=2)
+    plain_ms = time_ms(lambda: wc_trips_ref(sg, *args), iters=2, warmup=1)
+    _, rows = _profiled(lambda: [kern() for _ in range(5)])
+    dev_ms = per_launch_ms(rows, (("k", "wc_trips<"),))["k"]
+    # one trip a completion: every compute task and canonical transfer
+    trips = sg.n_compute + args[3].sum(1)
+    t_max, t_mean = int(trips.max()), float(trips.float().mean())
+    # each input read once (indices as the int32 the kernel takes), each
+    # output written once; the floor is the dependent chain of trips
+    words = (B * (2 * N + 2 * mm + 3 * (N + 1) + 2 * (sg.R + 1) + 6 * sg.R
+                  + sg.n + 1 + sg.K) + 2 * mm + sg.n * sg.C + 2 * B)
+    b_ms, b_by = bound_ms(4.0 * words, float(trips.sum()))
+    nbytes = wc_ops.episode_bytes(sg.n, mm, sg.R, sg.K)
+    print(f"wc_trips at llama_layer's batch (B={B}, n={sg.n}, R={sg.R}, "
+          f"C={sg.C}, K={sg.K}, {nbytes} bytes of state per episode, "
+          f"{trips_placements(sg)[0]}): {ms:.6f} ms per call, {dev_ms:.6f} "
+          f"ms device, trips per episode max {t_max} mean {t_mean:.1f}, "
+          f"{dev_ms * 1e3 / t_max:.4f} us per trip of the longest episode; "
+          f"bound {b_ms:.6f} ms ({b_by}); plain trip loop {plain_ms:.3f} ms")
+    return {"name": "wc_oracle_trips", "route": "cuda",
+            "source": "src/repro_torch/csrc/wc_oracle.cu",
+            "replaces": "src/repro/kernels/wc_oracle/kernel.py:41",
+            "loop_replaced": "src/repro/core/sim_jax.py:443 (_run_trips)",
+            "kernel": "wc_trips", "launches": 0, "max_abs_err": 0.0,
+            "ms": ms, "timed_device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "us_per_trip": dev_ms * 1e3 / t_max, "trips_max": t_max,
+            "trips_mean": t_mean, "batches_checked": n_batches,
+            "episodes_checked": n_episodes, "placements_run": seen,
+            "shape": {"B": B, "n": sg.n, "mm": mm, "R": sg.R, "C": sg.C,
+                      "K": sg.K, "episode_bytes": nbytes}}
 
 
 # ---------------------------------------------------- flash_attention
@@ -532,25 +730,30 @@ def main_path(dev):
         trainers.append(DopplerTrainer(get_workload(gname),
                                        get_device_model(fleet), seed=0,
                                        device=dev))
-    for tr in trainers:                   # first-use set-up (cuBLAS, ...)
+    for tr in trainers:       # first-use set-up (cuBLAS, kernel loads, ...)
         encode(tr.params, tr.gd, tr.encoder_backend)
+        tr.default_engine().run_batch(np.zeros((1, tr.g.n), np.int64))
     sync(dev)
-    gnn_ops.launches = wc_ops.launches = 0
+    gnn_ops.launches = wc_ops.launches = wc_ops.trip_launches = 0
     answers, per_request = [], []
     for tr in trainers:
-        g0, w0 = gnn_ops.launches, wc_ops.launches
+        g0, w0, t0 = gnn_ops.launches, wc_ops.launches, wc_ops.trip_launches
         answers.append(tr.place(n_samples=K_POP, eps=EPS))
-        per_request.append((gnn_ops.launches - g0, wc_ops.launches - w0))
-    launches = {"gnn_mp": gnn_ops.launches, "wc_oracle": wc_ops.launches}
+        per_request.append((gnn_ops.launches - g0, wc_ops.launches - w0,
+                            wc_ops.trip_launches - t0))
+    launches = {"gnn_mp": gnn_ops.launches, "wc_oracle": wc_ops.launches,
+                "wc_oracle_trips": wc_ops.trip_launches}
     return trainers, answers, per_request, launches
 
 
 def check_main_path(trainers, answers, per_request, dev) -> None:
-    for (gname, fleet), tr, pl, (lg, lw) in zip(REQUESTS, trainers, answers,
-                                                per_request):
+    for (gname, fleet), tr, pl, (lg, lw, lt) in zip(REQUESTS, trainers,
+                                                    answers, per_request):
         g = tr.g
         check(tr.encoder_backend == tr.oracle_backend == "cuda",
               "backends default to cuda on the card")
+        check((lw, lt) == (0, 1), f"{gname}: the oracle is one wc_trips "
+                                  f"launch and no wc_step launch: {lt}, {lw}")
         check(pl.population.shape == (K_POP, g.n), "population shape")
         cands = np.concatenate([pl.greedy[None], pl.population])
         check(bool(((cands >= 0) & (cands < tr.dev.n)).all()),
@@ -573,7 +776,7 @@ def check_main_path(trainers, answers, per_request, dev) -> None:
               f"cp_ms={cp_ms * 1e3:.6f} encode_s={sec['encode']:.6f} "
               f"rollout_s={sec['rollout']:.6f} "
               f"oracle_s={sec['oracle']:.6f} "
-              f"launches gnn_mp={lg} wc_oracle={lw}")
+              f"launches gnn_mp={lg} wc_trips={lt} wc_step={lw}")
 
     # small input against the CPU reference: same params, same inputs
     tr, pl = trainers[-1], answers[-1]
@@ -616,7 +819,8 @@ def profile_request(tr, untraced_s: float) -> dict:
     for us, count, key in rows[:8]:
         print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
     return per_launch_ms(rows, (("gnn_mp", "segment_sum_csr"),
-                                ("wc_oracle", "wc_step(")))
+                                ("wc_oracle", "wc_step("),
+                                ("wc_oracle_trips", "wc_trips<")))
 
 
 def device_rows(prof) -> list:
@@ -663,13 +867,14 @@ def teacher_forced(params, cfg, prompt, tokens, backend, state_dtype):
 
 
 def compare_paths(params, cfg, prompt, tokens, state_dtype, what,
-                  plain=None, fp32=None) -> tuple[float, float]:
+                  plain=None, fp32=None, fp64=None) -> tuple[float, float]:
     """Kernel path vs plain path (both backends "torch") on the card: the
     logits of prefill and of each teacher-forced decode step; -> (max
     scaled gap, its bar).  ``plain``: the plain path's logits, if already
     computed.  The bar is LOGITS_TOL, or, given ``fp32`` (the plain path's
     logits at compute_dtype float32 on the same weights), the plain path's
-    own largest gap from them."""
+    own largest gap from them.  ``fp64``: the plain path's logits in
+    float64 (parameters cast to fp64), a reading printed beside the bar."""
     kern = teacher_forced(params, cfg, prompt, tokens, "cuda", state_dtype)
     if plain is None:
         plain = teacher_forced(params, cfg, prompt, tokens, "torch",
@@ -685,6 +890,11 @@ def compare_paths(params, cfg, prompt, tokens, state_dtype, what,
                    f"{max(scaled_err(a, b) for a, b in zip(kern, fp32))}; "
                    f"argmax agreement of plain with fp32 "
                    f"{argmax_agreement(plain, fp32)}")
+    if fp64 is not None:
+        vs_fp32 += (f"; vs the plain path in fp64: plain "
+                    f"{max(scaled_err64(a, b) for a, b in zip(plain, fp64))},"
+                    f" kernel "
+                    f"{max(scaled_err64(a, b) for a, b in zip(kern, fp64))}")
     print(f"{what}: kernel vs plain path, logits of prefill + "
           f"{tokens.shape[1]} decode steps: max scaled err {max(errs)} "
           f"(prefill {errs[0]}, tol {tol}), argmax agreement "
@@ -765,9 +975,18 @@ def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
             f"{cfg.name} bf16, {cfg.n_layers} layers, seed {seed}",
             fp32=plain32))
         if not seed:
+            # a reading beside the fp32 gate, which stays as it is: both
+            # paths against the plain path run in float64
+            p64 = tree_map(lambda x: x.double() if x.is_floating_point()
+                           else x, p32)
+            plain64 = teacher_forced(p64, cfg32, pr, toks, "torch",
+                                     torch.float64)
+            del p64
             err, tol = compare_paths(
                 p32, cfg32, pr, toks, torch.float32,
-                f"{cfg.name} fp32, {cfg.n_layers} layers", plain=plain32)
+                f"{cfg.name} fp32, {cfg.n_layers} layers", plain=plain32,
+                fp64=plain64)
+            del plain64
             check(err <= tol, f"fp32 {cfg.n_layers} layers: kernel vs plain "
                               f"logits {err} > {tol}")
         del p16, p32, plain32
@@ -869,11 +1088,12 @@ def main() -> int:
     serve_cfg = get_config(SERVE_ARCH)
     kernels = [check_gnn_mp(dev), check_wc_oracle(dev),
                check_flash(dev, serve_cfg), check_mamba2(dev, serve_cfg)]
-    by_name = {k["name"]: k for k in kernels}
 
-    # path 1: placement requests (gnn_mp, wc_oracle)
+    # path 1: placement requests (gnn_mp, wc_oracle's wc_trips)
     trainers, answers, per_request, launches = main_path(dev)
     check_main_path(trainers, answers, per_request, dev)
+    kernels.insert(2, check_wc_trips(dev, trainers, answers))
+    by_name = {k["name"]: k for k in kernels}
     device_ms = profile_request(trainers[0], sum(answers[0].seconds.values()))
     del trainers, answers
 
@@ -887,10 +1107,18 @@ def main() -> int:
 
     # the flash_attention entry's kernel is flash_fwd_wgmma
     launches["flash_attention"] = launches.pop("flash_fwd_wgmma")
+    ported = {}
     for name, k in by_name.items():
         k["launches"] = launches[name]
         k["device_ms"] = device_ms[name]
-        check(k["launches"] > 0, f"{name} launched on its path")
+        ported[k["replaces"]] = ported.get(k["replaces"], 0) + k["launches"]
+    # every Pallas kernel: one of its ports launched on its path (the
+    # oracle's path runs wc_trips; wc_step, its per-trip twin, records 0)
+    for replaces, n in ported.items():
+        check(n > 0, f"a port of {replaces} launched on its path")
+    check(launches["wc_oracle_trips"] == len(REQUESTS)
+          and launches["wc_oracle"] == 0,
+          "the placement path ran wc_trips once a request, wc_step never")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,13 @@ def masked_entropy(logits, mask):
     return -torch.where(mask, p * logp, torch.zeros_like(logp)).sum(-1)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when it is float64: the model's
+    upcasts to fp32, which a float64 run (a numerics reference for the
+    fp32 paths) keeps in fp64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def first_true(mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Index of the first True along ``dim``, 0 where there is none — what
     the reference's ``argmax`` over booleans returns, without relying on

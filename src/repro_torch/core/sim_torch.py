@@ -11,24 +11,17 @@ channels), one heap pop per trip, insertion keys as exact f32 integers.
 
 What differs from the reference:
 
-* ``vmap`` is a written-out leading batch axis B; the trip ``while_loop``
-  is a Python loop that tests its exit condition every
-  ``CHECK_EVERY`` trips (trips past an episode's completion are no-ops,
-  so the result is decision-exact), capped at ``n_trips + 1``.
+* ``vmap`` is a written-out leading batch axis B.  The per-batch set-up
+  (``_derive_tasks``, ``_init_episode``) is PyTorch; the trip loop
+  (``_run_trips``'s ``while_loop``) is the ``wc_oracle`` kernel
+  ``wc_trips`` on CUDA tensors: one launch runs every trip of every
+  episode on the card, each episode stopping at its own completion.
+  Its plain version ``wc_trips_ref`` (``kernels/wc_oracle/ref.py``) is
+  the loop in PyTorch ops, one host-driven trip at a time.
 * JAX drops out-of-range scatter updates and clamps out-of-range
-  gathers; torch raises.  Every buffer the reference scatters out of
-  range gets one trash row instead:
-    - ``tkn``  (B, N + 1, 3): index N, written by ``_readiness``
-      (``i_task == N`` for dead entries, ``link_idx == N`` for no link);
-    - ``hdtl`` (B, R + 1, 2): index R, written by ``_start_pass``
-      (``ridx == R``) and ``_readiness`` (dead ``i_res``);
-    - ``need`` (B, n + 1):    index n, written by ``_readiness``
-      (untriggered out-edges).
-  Reads that the reference clamps are clamped explicitly.
-* ``backend="cuda"`` routes the per-trip table work (start writes,
-  lexicographic pop, slot clear) through the ``wc_oracle`` kernel, as
-  ``_makespan_fifo_batch_pallas`` does; ``backend="torch"`` uses its
-  plain version.  Both share every other op.
+  gathers; torch raises, so the set-up's buffers carry one trash row
+  each: ``tkn`` (B, N + 1, 3), ``hdtl`` (B, R + 1, 2), ``need`` (B, n + 1)
+  (``kernels/wc_oracle/ref.py`` says which writes land there).
 """
 from __future__ import annotations
 
@@ -37,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.wc_oracle.ops import wc_step
+from ..kernels.wc_oracle.ops import wc_trips
 from .device import resolve_device
 from .devices import DeviceModel
 from .graph import DataflowGraph
@@ -46,7 +39,6 @@ from .nn import first_true
 I32_BIG = 2**31 - 1
 F_BIG = float(I32_BIG)               # f32(2**31 - 1) == 2**31
 ORACLE_BACKENDS = ("torch", "cuda")
-CHECK_EVERY = 16                     # trips between host checks of the exit
 
 
 @dataclasses.dataclass
@@ -149,13 +141,6 @@ class SimGraph:
             n_trips=n_compute + x_max, seqw=seqw, koff=koff)
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-episode gather x[b, idx[b, ...]] for x (B, L, *tail)."""
-    B = x.shape[0]
-    bi = torch.arange(B, device=x.device).view(B, *([1] * (idx.dim() - 1)))
-    return x[bi, idx]
-
-
 def _derive_tasks(sg: SimGraph, A: torch.Tensor):
     """Per-assignment task systems for a batch A (B, n)."""
     av = A.long()
@@ -229,109 +214,12 @@ def _init_episode(sg: SimGraph, av: torch.Tensor):
     return tkn, hdtl, run, need, cand
 
 
-def _start_pass(sg: SimGraph, dur, tkn, hdtl, run, cand, t, ftrip: float):
-    """Work-conserving start pass over the candidate resources: a free
-    resource starts its queue head (duplicate candidates are idempotent).
-    Returns ``ridx`` (``R`` drops the row) and ``rows``; applies the
-    queue-head pops to ``hdtl`` in place."""
-    R = sg.R
-    cc = cand.clamp(max=R - 1)
-    crow = _rows(run, cc)                                   # (B, K, 6)
-    h = torch.where(cand < R, _rows(hdtl, cc)[..., 0], -1)  # head or -1
-    # a resource whose task ends exactly at t counts as free in the serial
-    # engine before its completion pops; its slot is still occupied here,
-    # so that start waits one trip (same start time, same schedule)
-    go = (h >= 0) & (crow[..., 5] <= t[:, None]) & ~torch.isfinite(
-        crow[..., 0])
-    hh = h.clamp(min=0)
-    end_c = t[:, None] + _rows(dur, hh)
-    ridx = torch.where(go, cc, R)
-    hrow = _rows(tkn, hh)                                   # (B, K, 3)
-    rows = torch.stack([end_c, torch.full_like(end_c, ftrip), hrow[..., 1],
-                        hrow[..., 0], hh.float(), end_c], dim=2)
-    hn = hrow[..., 2].long()
-    new_hdtl = torch.stack(
-        [hn, torch.where(hn < 0, -1, _rows(hdtl, cc)[..., 1])], dim=2)
-    B = cand.shape[0]
-    bi = torch.arange(B, device=cand.device)[:, None]
-    hdtl[bi, ridx] = new_hdtl                               # R: trash row
-    return ridx, rows
-
-
-def _readiness(sg: SimGraph, is_canon, req, res_of, tkn, hdtl, need, t,
-               trip_idx: int, c, c_is_exec, alive):
-    """Readiness triggered by completion ``c``, in the completed producer's
-    out-edge row (≤C entries), in the serial emission order.  Updates
-    ``tkn``, ``hdtl`` and ``need`` in place; returns ``i_res`` (B, C)."""
-    n, C, R = sg.n, sg.C, sg.R
-    mm = sg.esrc.shape[0]
-    N = n + mm
-    B = c.shape[0]
-    dev = c.device
-    bi = torch.arange(B, device=dev)[:, None]
-    cpos = torch.arange(C, device=dev)
-    cx = (c - n).clamp(0, mm - 1)
-    p = torch.where(c_is_exec, c, sg.esrc[cx])              # (B,)
-    prow = sg.out_row[p.clamp(0, n - 1)]                    # (B, C)
-    pe = prow.clamp(min=0)
-    pvalid = (prow >= 0) & alive[:, None]
-    ptrig = pvalid & (_rows(req, pe) == c[:, None])
-    pdst = sg.edst[pe]
-    need.scatter_add_(1, torch.where(ptrig, pdst, n), -ptrig.long())
-    # last decrement wins the emission slot: max triggered succ position
-    # per destination vertex; parallel edges collapse onto that slot
-    samew = pdst[:, :, None] == pdst[:, None, :]
-    maxpos = torch.where(samew & ptrig[:, None, :], cpos, -1).amax(2)
-    nw = ptrig & (_rows(need, pdst) == 0) & (cpos == maxpos)
-    nx = pvalid & c_is_exec[:, None] & _rows(is_canon, pe)
-    i_live = nw | nx
-    base = n + trip_idx * sg.seqw
-    i_task = torch.where(nw, pdst, torch.where(nx, n + pe, N))
-    i_key = torch.where(nw, base + maxpos, sg.koff + base + C + cpos)
-    i_res = torch.where(i_live, _rows(res_of, i_task.clamp(max=N - 1)), R)
-    # within-trip chaining: link each entry to the next entry bound for
-    # the same resource; execs and transfers target disjoint resources
-    samer = (i_res[:, :, None] == i_res[:, None, :]) & i_live[:, None, :]
-    after = samer & (cpos[None, None, :] > cpos[None, :, None])
-    succ_k = torch.where(after, cpos, C).amin(2)
-    has_succ = succ_k < C
-    succ_task = torch.gather(i_task, 1, succ_k.clamp(max=C - 1))
-    is_first = ~(samer & (cpos[None, None, :] < cpos[None, :, None])
-                 ).any(2) & i_live
-    is_last = ~has_succ & i_live
-    # one combined row scatter: (key, ready, chain-next) for the new
-    # entries plus the tail-append link from each queue's old tail;
-    # both sets are disjoint and deduped, dead entries go to trash row N
-    rtl = _rows(hdtl, i_res.clamp(max=R - 1))[..., 1]
-    link_idx = torch.where(is_first & (rtl >= 0), rtl.clamp(min=0), N)
-    link_row = _rows(tkn, link_idx)
-    new_rows = torch.stack([
-        torch.cat([i_key.float(), link_row[..., 0]], 1),
-        torch.cat([t[:, None].expand(B, C), link_row[..., 1]], 1),
-        torch.cat([torch.where(has_succ, succ_task, -1).float(),
-                   i_task.float()], 1)], dim=2)
-    tkn[bi, torch.cat([i_task, link_idx], 1)] = new_rows
-    # every live entry writes its resource's FINAL (head, tail) row, so
-    # duplicate indices carry identical values; dead ones go to row R
-    fst = torch.where(samer & is_first[:, None, :], i_task[:, None, :],
-                      -1).amax(2)
-    lst = torch.where(samer & is_last[:, None, :], i_task[:, None, :],
-                      -1).amax(2)
-    old_hd = _rows(hdtl, i_res.clamp(max=R - 1))[..., 0]
-    hdtl[bi, torch.where(i_live, i_res, R)] = torch.stack(
-        [torch.where(rtl < 0, fst, old_hd), lst], dim=2)
-    return i_res
-
-
-def _next_cand(sg: SimGraph, i_res, rho, alive):
-    """Next trip's candidates: resources whose queue gained a task plus the
-    resource freed by the pop, padded with R to K."""
-    R, K, C = sg.R, sg.K, sg.C
-    cand = torch.cat([i_res, torch.where(alive, rho, R)[:, None]], 1)
-    if K > C + 1:
-        cand = torch.cat([cand, cand.new_full((cand.shape[0], K - C - 1),
-                                              R)], 1)
-    return cand
+def trip_inputs(sg: SimGraph, A: torch.Tensor) -> tuple:
+    """The set-up of a batch A (B, n), as ``wc_trips`` takes it: (dur,
+    res_of, req, is_canon, tkn, hdtl, run, need, cand)."""
+    av, is_canon, req, edur, xdur, res_x = _derive_tasks(sg, A)
+    return (torch.cat([edur, xdur], 1), torch.cat([av, res_x], 1), req,
+            is_canon, *_init_episode(sg, av))
 
 
 def makespan_fifo_batch(sg: SimGraph, assignments: torch.Tensor,
@@ -340,41 +228,13 @@ def makespan_fifo_batch(sg: SimGraph, assignments: torch.Tensor,
 
     ``ok`` is False for episodes whose heap drained before every compute
     task ran (deadlock): their makespans are garbage.  ``backend`` picks
-    the per-trip table step: the ``wc_oracle`` kernel ("cuda"; its plain
-    version for CPU tensors) or the plain version ("torch")."""
+    the trip loop: the ``wc_trips`` kernel ("cuda", one launch per batch;
+    its plain version for CPU tensors) or the plain version ("torch")."""
     if backend not in ORACLE_BACKENDS:
         raise ValueError(f"unknown oracle backend {backend!r}; expected "
                          f"one of {ORACLE_BACKENDS}")
-    n, R = sg.n, sg.R
     A = torch.as_tensor(assignments, device=sg.exec_cost.device)
-    av, is_canon, req, edur, xdur, res_x = _derive_tasks(sg, A)
-    dur = torch.cat([edur, xdur], 1)
-    res_of = torch.cat([av, res_x], 1)
-    tkn, hdtl, run, need, cand = _init_episode(sg, av)
-    B = av.shape[0]
-    t = torch.zeros(B, device=av.device)
-    ms = torch.zeros(B, device=av.device)
-    n_done = torch.zeros(B, dtype=torch.long, device=av.device)
-    for trip in range(sg.n_trips + 1):
-        if trip % CHECK_EVERY == 0 and not bool(
-                (n_done < sg.n_compute).any()):
-            break
-        ridx, rows = _start_pass(sg, dur, tkn, hdtl, run, cand, t,
-                                 float(trip))
-        # the kernel's drop sentinel is -1, not R
-        run, rho, e1 = wc_step(run, rows.contiguous(),
-                               torch.where(ridx < R, ridx, -1).to(
-                                   torch.int32), backend=backend)
-        rho = rho.long()
-        alive = torch.isfinite(e1)
-        c = torch.where(alive, _rows(run, rho[:, None])[:, 0, 4].long(), -1)
-        c_is_exec = alive & (c < n)
-        t = torch.where(alive, e1, t)
-        ms = torch.where(alive, e1, ms)
-        n_done = n_done + c_is_exec.long()
-        i_res = _readiness(sg, is_canon, req, res_of, tkn, hdtl, need, t,
-                           trip, c, c_is_exec, alive)
-        cand = _next_cand(sg, i_res, rho, alive)
+    ms, n_done = wc_trips(sg, *trip_inputs(sg, A), backend=backend)
     return ms, n_done == sg.n_compute
 
 

@@ -23,17 +23,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# C entry point of each source: (symbol, argtypes); every entry returns
+# C entry points of each source: {symbol: argtypes}; every entry returns
 # a cudaError_t as an int
 ENTRY_POINTS = {
-    "gnn_mp": ("gnn_mp_segment_sum", [P, P, P, P, I, I, P]),
-    "wc_oracle": ("wc_oracle_step", [P, P, P, P, P, P, I, I, I, P]),
-    "flash_attention": ("flash_attention_fwd",
-                        [P, P, P, P, I, I, I, I, I, I, I, P]),
-    "flash_attention_sm90": ("flash_attention_wgmma_fwd",
-                             [P, P, P, P, I, I, I, I, I, I, P]),
-    "mamba2_scan": ("mamba2_scan_fwd",
-                    [P] * 9 + [I] * 8 + [I64] * 6 + [P]),
+    "gnn_mp": {"gnn_mp_segment_sum": [P, P, P, P, I, I, P]},
+    "wc_oracle": {"wc_oracle_step": [P, P, P, P, P, P, I, I, I, P],
+                  "wc_oracle_trips": [P] * 15 + [I] * 12 + [P]},
+    "flash_attention": {"flash_attention_fwd":
+                        [P, P, P, P, I, I, I, I, I, I, I, P]},
+    "flash_attention_sm90": {"flash_attention_wgmma_fwd":
+                             [P, P, P, P, I, I, I, I, I, I, P]},
+    "mamba2_scan": {"mamba2_scan_fwd":
+                    [P] * 9 + [I] * 8 + [I64] * 6 + [P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -97,10 +98,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

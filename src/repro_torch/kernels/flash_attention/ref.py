@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.nn import at_least_f32
+
 NEG_INF = -1e30
 
 
@@ -20,14 +22,16 @@ def _scores_softmax_out(q, k, v, mask, softcap: float = 0.0,
     (B, Hkv, G, C, T).  Returns (B, C, Hkv, G, hd)."""
     hd = q.shape[-1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-    s = torch.einsum("bckgh,btkh->bkgct", q.float(), k.float()) * scale
+    s = torch.einsum("bckgh,btkh->bkgct", at_least_f32(q),
+                     at_least_f32(k)) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     if mixed:
         p = p.to(v.dtype)
-    out = torch.einsum("bkgct,btkh->bckgh", p.float(), v.float())
+    out = torch.einsum("bkgct,btkh->bckgh", at_least_f32(p),
+                       at_least_f32(v))
     return out.to(v.dtype)
 
 

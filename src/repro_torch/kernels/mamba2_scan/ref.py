@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...core.nn import at_least_f32
+
 
 def _chunk_gla(q, k, v, log_a, state):
     """One chunk.  q, k: (B, L, H, N); v: (B, L, H, P); log_a: (B, L, H)
@@ -42,7 +44,8 @@ def chunked_gla(q, k, v, log_a, chunk: int, state=None):
     B, S, H, N = q.shape
     P = v.shape[-1]
     if state is None:
-        state = torch.zeros(B, H, P, N, dtype=torch.float32, device=q.device)
+        wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+        state = torch.zeros(B, H, P, N, dtype=wide, device=q.device)
     if S <= chunk:
         return _chunk_gla(q, k, v, log_a, state)
     if S % chunk:
@@ -63,8 +66,10 @@ def chunked_gla(q, k, v, log_a, chunk: int, state=None):
 
 
 def ssd_scan_ref(q, k, v, log_a, chunk: int, state=None):
-    """The kernel's function: ``chunked_gla`` in fp32.  q, k: (B, S, H, N);
+    """The kernel's function: ``chunked_gla`` in fp32 (fp64 inputs stay
+    fp64).  q, k: (B, S, H, N);
     v: (B, S, H, P); log_a: (B, S, H); state: (B, H, P, N) or None.
     Returns y (B, S, H, P) fp32 and the final state (B, H, P, N)."""
-    return chunked_gla(q.float(), k.float(), v.float(), log_a.float(), chunk,
-                       None if state is None else state.float())
+    q, k, v, log_a = map(at_least_f32, (q, k, v, log_a))
+    return chunked_gla(q, k, v, log_a, chunk,
+                       None if state is None else at_least_f32(state))

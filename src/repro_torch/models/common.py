@@ -11,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.nn import tree_map
+from ..core.nn import at_least_f32, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -38,17 +38,17 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
              eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     if scale is not None:
-        y = y * (1.0 + scale.float())
+        y = y * (1.0 + at_least_f32(scale))
     return y.to(x.dtype)
 
 
 def nonparametric_layernorm(x: torch.Tensor, eps: float = 1e-6
                             ) -> torch.Tensor:
     """OLMo-style LayerNorm without learned scale/bias."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -70,12 +70,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
     split-halves layout: the first hd/2 channels rotate with the second."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+    xf = at_least_f32(x)
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=xf.dtype,
                             device=x.device)
-    ang = positions[..., None].float() * freqs             # (..., S, hd/2)
+    ang = positions[..., None].to(xf.dtype) * freqs        # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return y.to(x.dtype)
 

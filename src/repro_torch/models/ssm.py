@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.nn import at_least_f32
 from ..kernels.mamba2_scan import ops as ssd_ops
 from ..kernels.mamba2_scan.ref import _chunk_gla, chunked_gla  # noqa: F401
 from .common import _normal, dense_init
@@ -72,12 +73,12 @@ def mamba2_forward(params, x, cfg: SSMConfig, state=None,
     P = di // H
     z, xin, Bs, Cs, dt = _split_proj(x @ params["w_in"], di, N, H)
     xin = F.silu(_causal_conv(xin, params["conv"]))
-    dt = F.softplus(dt.float() + params["dt_bias"])          # (B, S, H)
+    dt = F.softplus(at_least_f32(dt) + params["dt_bias"])    # (B, S, H)
     log_a = dt * -torch.exp(params["A_log"])                 # <= 0
-    xh = xin.reshape(B, S, H, P).float()
+    xh = at_least_f32(xin.reshape(B, S, H, P))
     u = xh * dt[..., None]
-    kq = Bs.float()[:, :, None, :].expand(B, S, H, N)
-    qq = Cs.float()[:, :, None, :].expand(B, S, H, N)
+    kq = at_least_f32(Bs)[:, :, None, :].expand(B, S, H, N)
+    qq = at_least_f32(Cs)[:, :, None, :].expand(B, S, H, N)
     y, st = ssd_ops.ssd_scan(qq, kq, u, log_a, cfg.chunk, state,
                              backend=backend)
     y = y + params["D_skip"][None, None, :, None] * xh
@@ -95,11 +96,11 @@ def mamba2_step(params, x, cfg: SSMConfig, state, conv_tail):
     z, xin, Bs, Cs, dt = _split_proj(x[:, 0] @ params["w_in"], di, N, H)
     hist = torch.cat([conv_tail, xin[:, None, :]], dim=1)    # (B, W, di)
     xin = F.silu(torch.einsum("bwd,wd->bd", hist, params["conv"]))
-    dt = F.softplus(dt.float() + params["dt_bias"])          # (B, H)
+    dt = F.softplus(at_least_f32(dt) + params["dt_bias"])    # (B, H)
     log_a = dt * -torch.exp(params["A_log"])
-    xh = xin.reshape(B, H, P).float()
-    k = Bs.float()[:, None, :].expand(B, H, N)
-    q = Cs.float()[:, None, :].expand(B, H, N)
+    xh = at_least_f32(xin.reshape(B, H, P))
+    k = at_least_f32(Bs)[:, None, :].expand(B, H, N)
+    q = at_least_f32(Cs)[:, None, :].expand(B, H, N)
     y, state = gla_step(q, k, xh * dt[..., None], log_a, state)
     y = y + params["D_skip"][None, :, None] * xh
     y = y.reshape(B, di).to(x.dtype) * F.silu(z)

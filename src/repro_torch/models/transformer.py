@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.nn import tree_map
@@ -159,7 +160,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: str | torch.device = "cuda") -> dict:
     """Per-layer decode state, stacked like the params (unit/rem lists):
     (K cache, V cache) per attention occurrence, (SSD state, conv tail)
-    per Mamba2 block.  Caches and tails in ``dtype``, SSD states fp32."""
+    per Mamba2 block.  Caches and tails in ``dtype``, SSD states fp32
+    (fp64 when ``dtype`` is)."""
     check_supported(cfg)
     device = resolve_device(device)
     unit, reps, rem = unit_and_reps(cfg)
@@ -172,7 +174,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
             return (z(*kv), z(*kv))          # two buffers: written in place
         di = cfg.ssm.expand * cfg.d_model
         H, N = cfg.ssm.n_heads, cfg.ssm.state_dim
-        return (z(H, di // H, N, dt=torch.float32),
+        wide = torch.float64 if dtype == torch.float64 else torch.float32
+        return (z(H, di // H, N, dt=wide),
                 z(cfg.ssm.conv_width - 1, di))
 
     return {"unit": [one(kind, (reps,)) for kind in unit],
@@ -229,8 +232,11 @@ def _mamba_block_apply(p, cfg: ModelConfig, x, mode, state, backend):
     tail = state[1] if state is not None else None
     if mode == "prefill":
         di = cfg.ssm.expand * cfg.d_model
-        tail = h[:, -(cfg.ssm.conv_width - 1):, :] \
-            @ p["core"]["w_in"][:, di:2 * di]
+        W1, S = cfg.ssm.conv_width - 1, h.shape[1]
+        tail = h[:, max(S - W1, 0):, :] @ p["core"]["w_in"][:, di:2 * di]
+        # a prompt shorter than the conv's history: zeros before it, the
+        # padding _causal_conv applies
+        tail = F.pad(tail, (0, 0, W1 - tail.shape[1], 0))
     return x + y, (ssd, tail)
 
 

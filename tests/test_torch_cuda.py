@@ -5,7 +5,9 @@ file imports no jax, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive); the
+Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive);
+``wc_trips`` bit-equal to the plain trip loop on ms and n_done, in both
+placements of its state; the
 ``gnn_mp`` segment-sum within 1e-5 of the plain version relative to the
 output's largest magnitude (both sum in fp32, in different orders);
 the oracle's makespans with the kernel equal to the plain path's;
@@ -14,12 +16,16 @@ the oracle's makespans with the kernel equal to the plain path's;
 ``flash_fwd``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
 bars of tests/test_kernels.py.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.devices import get_device_model
-from repro_torch.core.sim_torch import SimGraph, makespan_fifo_batch
+from repro_torch.core.devices import get_device_model, uniform_box
+from repro_torch.core.graph import DataflowGraph
+from repro_torch.core.sim_torch import (SimGraph, makespan_fifo_batch,
+                                        trip_inputs)
 from repro_torch.core.training import DopplerTrainer
 from repro_torch.graphs import workloads
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -29,7 +35,7 @@ from repro_torch.kernels.gnn_mp.ref import build_csr, segment_sum_ref
 from repro_torch.kernels.wc_oracle import ops as wc_ops
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref
-from repro_torch.kernels.wc_oracle.ref import wc_step_ref
+from repro_torch.kernels.wc_oracle.ref import wc_step_ref, wc_trips_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -120,9 +126,10 @@ def test_oracle_kernel_path_equals_plain_and_cpu(cuda, gname, fleet):
     A = torch.from_numpy(np.random.default_rng(0).integers(0, dev.n,
                                                            (33, g.n)))
     sg = SimGraph.build(g, dev, cuda)
-    before = wc_ops.launches
+    before = (wc_ops.launches, wc_ops.trip_launches)
     ms_k, ok_k = makespan_fifo_batch(sg, A.to(cuda), backend="cuda")
-    assert wc_ops.launches > before
+    assert (wc_ops.launches, wc_ops.trip_launches) == (before[0],
+                                                       before[1] + 1)
     ms_t, ok_t = makespan_fifo_batch(sg, A.to(cuda), backend="torch")
     ms_c, ok_c = makespan_fifo_batch(SimGraph.build(g, dev, "cpu"), A,
                                      backend="torch")
@@ -130,14 +137,88 @@ def test_oracle_kernel_path_equals_plain_and_cpu(cuda, gname, fleet):
     assert torch.equal(ms_k, ms_t) and torch.equal(ms_k.cpu(), ms_c)
 
 
+def _fanout(width):
+    g = DataflowGraph(f"fanout{width}")
+    x = g.add_vertex("input", out_bytes=4e6)
+    hub = g.add_vertex("matmul", flops=2e9, out_bytes=8e6)
+    join = g.add_vertex("sum_reduction", flops=1e6, out_bytes=1e6)
+    g.add_edge(x, hub)
+    for i in range(width):
+        v = g.add_vertex("matmul", flops=1e8 * (1 + i % 7),
+                         out_bytes=1e5 * (1 + i % 3))
+        g.add_edge(hub, v)
+        g.add_edge(v, join)
+    return g.freeze()
+
+
+@pytest.mark.parametrize("gname,fleet,B", [
+    ("llama_layer", "v100x8", 257), ("llama_block", "mixed_gen4", 64),
+    ("ffnn", "p100x4", 1), ("chainmm", "two_pod_2x2", 33),
+    ("ffnn", "one_device", 5), ("fanout", "v100x8", 16),
+    ("ffnn", "tpu_v5e_16x16", 2)])
+def test_wc_trips_kernel_equals_plain(cuda, gname, fleet, B):
+    """Both placements where the state fits shared memory; ffnn x
+    tpu_v5e_16x16 (R = 65,792) takes the global scratch by itself."""
+    g = _fanout(70) if gname == "fanout" else getattr(workloads, gname)()
+    fm = uniform_box(1) if fleet == "one_device" else get_device_model(fleet)
+    sg = SimGraph.build(g, fm, cuda)
+    A = torch.from_numpy(np.random.default_rng(B).integers(0, fm.n,
+                                                            (B, g.n)))
+    args = trip_inputs(sg, A.to(cuda))
+    ms_r, nd_r = wc_trips_ref(sg, *args)
+    nbytes = wc_ops.episode_bytes(sg.n, sg.esrc.shape[0], sg.R, sg.K)
+    auto = wc_ops.placement(nbytes, cuda)
+    assert (auto == "global") == (fleet == "tpu_v5e_16x16")
+    for where in (auto,) if auto == "global" else ("shared", "global"):
+        before = wc_ops.trip_launches
+        ms_k, nd_k = wc_ops.wc_trips(sg, *args, where=where)
+        torch.cuda.synchronize()
+        assert wc_ops.trip_launches == before + 1
+        assert torch.equal(ms_k, ms_r) and torch.equal(nd_k, nd_r)
+        assert (nd_k == sg.n_compute).all()
+
+
+def test_wc_trips_kernel_deadlock(cuda):
+    g = workloads.synthetic_layered(2, 2)
+    sg = SimGraph.build(g, uniform_box(2), cuda)
+    need0 = sg.need0.clone()
+    need0[int(torch.nonzero(need0 > 0)[0])] = 99
+    bad = dataclasses.replace(sg, need0=need0)
+    A = torch.zeros(3, g.n, dtype=torch.long, device=cuda)
+    ms_k, ok_k = makespan_fifo_batch(bad, A, backend="cuda")
+    ms_t, ok_t = makespan_fifo_batch(bad, A, backend="torch")
+    assert not ok_k.any() and not ok_t.any() and torch.equal(ms_k, ms_t)
+
+
+def test_wc_trips_kernel_rejects_bad_inputs(cuda):
+    g = workloads.ffnn()
+    sg = SimGraph.build(g, get_device_model("p100x4"), cuda)
+    args = list(trip_inputs(sg, torch.zeros(2, g.n, dtype=torch.long,
+                                           device=cuda)))
+    bad = [(0, args[0].double()),                  # dur not f32
+           (0, args[0][:, :-1]),                   # dur shape
+           (4, args[4].cpu()),                     # tkn on the CPU
+           (4, args[4].transpose(1, 2).contiguous().transpose(1, 2)),
+           (1, args[1].float())]                   # float indices
+    for i, t in bad:
+        a = list(args)
+        a[i] = t
+        with pytest.raises(ValueError):
+            wc_ops.wc_trips(sg, *a)
+    big = SimGraph.build(g, get_device_model("tpu_v5e_16x16"), cuda)
+    with pytest.raises(ValueError):
+        wc_ops.wc_trips(big, *trip_inputs(big, torch.zeros(
+            1, g.n, dtype=torch.long, device=cuda)), where="shared")
+
+
 def test_placement_request_on_the_card(cuda):
     g = workloads.ffnn()
     tr = DopplerTrainer(g, get_device_model("p100x4"), seed=0, device=cuda)
     assert (tr.encoder_backend, tr.oracle_backend) == ("cuda", "cuda")
-    g0, w0 = gnn_ops.launches, wc_ops.launches
+    g0, w0, t0 = gnn_ops.launches, wc_ops.launches, wc_ops.trip_launches
     pl = tr.place(n_samples=16)
     assert gnn_ops.launches - g0 == 4          # 2 layers x 2 directions
-    assert wc_ops.launches > w0
+    assert (wc_ops.launches, wc_ops.trip_launches) == (w0, t0 + 1)
     assert pl.population.shape == (16, g.n) and np.isfinite(pl.makespans).all()
     assert pl.makespan == pl.makespans.min()
 

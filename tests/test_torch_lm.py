@@ -147,6 +147,56 @@ def test_prefill_decode_matches_own_forward(ref_params):
                                    rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("prompt_len", [1, 2])
+def test_short_prompt_prefill_and_decode(ref_params, prompt_len):
+    """A prompt shorter than conv_width - 1 (ROADMAP C1): prefill pads the
+    conv tail with zeros, so prefill + decode equals ``repro``'s
+    train-mode forward over prompt + decoded tokens (the reference's own
+    decode has the same fault and cannot be the oracle)."""
+    cfg_j, cfg = _cfgs("float32")
+    assert prompt_len < cfg.ssm.conv_width - 1
+    toks = _tokens(cfg.vocab)[:, :prompt_len + 4]
+    jp = jax.tree_util.tree_map(jnp.asarray, ref_params)
+    full, _, _ = jax_tf.model_apply(jp, cfg_j, {"tokens": jnp.asarray(toks)})
+    tp = transformer.cast_params(params_from_numpy(ref_params), cfg)
+    t = torch.from_numpy(toks).long()
+    state = transformer.init_decode_state(cfg, B, CACHE, dtype=torch.float32,
+                                          device="cpu")
+    pre, state, _ = transformer.model_apply(
+        tp, cfg, {"tokens": t[:, :prompt_len]}, mode="prefill", state=state)
+    errs = [_scaled_err(pre, full[:, :prompt_len])]
+    decode = steps.make_decode_step(cfg)
+    for i in range(prompt_len, toks.shape[1]):
+        lg, state = decode(tp, {"tokens": t[:, i:i + 1]}, state, i)
+        errs.append(_scaled_err(lg, full[:, i]))
+    assert max(errs) <= F32_TOL, errs
+
+
+def test_plain_path_in_float64(ref_params):
+    """Parameters and decode state cast to float64 keep the whole plain
+    path in fp64 (the numerics reference chip_smoke.py holds the fp32
+    paths against); it agrees with the fp32 path within F32_TOL."""
+    _, cfg = _cfgs("float32")
+    p32 = transformer.cast_params(params_from_numpy(ref_params), cfg)
+    p64 = tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                   p32)
+    toks = _tokens(cfg.vocab)
+    out = {}
+    for name, p, dt in (("f32", p32, torch.float32),
+                        ("f64", p64, torch.float64)):
+        state = transformer.init_decode_state(cfg, B, CACHE, dtype=dt,
+                                              device="cpu")
+        t = torch.from_numpy(toks).long()
+        pre, state, _ = transformer.model_apply(
+            p, cfg, {"tokens": t[:, :SPLIT]}, mode="prefill", state=state)
+        decode = steps.make_decode_step(cfg)
+        lg, _ = decode(p, {"tokens": t[:, SPLIT:SPLIT + 1]}, state, SPLIT)
+        out[name] = (pre, lg)
+    assert all(x.dtype == torch.float64 for x in out["f64"])
+    for a, b in zip(out["f32"], out["f64"]):
+        assert _scaled_err(a, b.numpy()) <= F32_TOL
+
+
 def test_kernel_backends_on_cpu_are_the_plain_path(ref_params):
     _, cfg = _cfgs("float32")
     tp = params_from_numpy(ref_params)
