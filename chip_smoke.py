@@ -14,18 +14,22 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. kernels vs their plain versions on the card, each timed with CUDA
    events beside its plain version and, where one PyTorch call computes
    the same function, that call:
-   ``gnn_mp`` (max relative error <= 1e-5) at the placement path's shapes
-   and on a ~10^6-edge random graph (yardstick ``index_add_``, also in
-   device time under the profiler, beside an empty kernel's launch);
+   ``gnn_mp`` (max relative error <= 1e-5), the single-direction kernel
+   and the pair kernel (both directions of a GNN layer in one launch), at
+   the placement path's shapes and on a 2^20-edge random graph, each timed
+   with its byte bound (yardstick ``index_add_``, also in device time under
+   the profiler, beside an empty kernel's launch);
    ``wc_oracle``'s per-trip kernel ``wc_step`` bit-exact on run_out and e1
    (rho where alive) at the placement shape B=257, R=72, K=8 and random
    shapes with drained, all-dropped and tied rows;
-   ``flash_attention`` (2e-5 in fp32, 2e-2 in bf16) at the serving shape
-   B=4, S=2048, H=32, d=64 in bf16 and fp32 and on random GQA, ragged
-   and non-causal shapes (yardstick ``scaled_dot_product_attention``):
-   bf16 at d 64 and 128 runs the tensor-core kernel ``flash_fwd_wgmma``,
-   fp32 the CUDA-core ``flash_fwd``; both are timed, the first also
-   against ``flash_fwd`` on the same bf16 inputs;
+   ``flash_attention`` (2e-5 in fp32, 2e-2 in bf16 and fp16) at zamba2's
+   serving shape B=4, S=2048, H=32, d=64 in bf16 and fp32, at gemma-2b's
+   B=4, S=2048, H=8, one KV head, d=256 in bf16, and on random GQA, MQA,
+   ragged and non-causal shapes with d up to 256 in all three types
+   (yardstick ``scaled_dot_product_attention``): bf16 at d 64 and 128 runs
+   ``flash_fwd_wgmma``, every other case ``flash_fwd_mma``; the first is
+   timed at zamba2's bf16 shape (and ``flash_fwd_mma`` on the same
+   inputs), the second in fp32 at zamba2's shape and in bf16 at gemma's;
    ``mamba2_scan`` (y and final state within 1e-4 of max(|ref|, 1)) at
    the serving shape B*H=64, S=2048, N=64, P=256, chunk 256 (with and
    without an initial state) and on P and chunk 100, N 50, S 1, q and k
@@ -36,7 +40,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    work the design issues.
 4. placement path: three placement requests through ``DopplerTrainer(...,
    device="cuda")`` at the policy's published width (d_hidden 64, d_z 32,
-   d_y 32, 2 GNN layers, random weights from a seed): greedy plus 256
+   d_y 32, 2 GNN layers, random weights from a seed): one ``gnn_mp`` pair
+   launch per GNN layer (2 per request) and none of the single-direction
+   kernel; greedy plus 256
    samples at eps 0.2, scored in one oracle batch: exactly one launch of
    ``wc_oracle``'s ``wc_trips`` (every trip of every episode) and none of
    ``wc_step`` per request.  The population's makespans with the kernel
@@ -53,20 +59,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    32,000; random seed-0 weights in bf16) through
    ``repro_torch.launch.serve``'s functions: batch 4 x prompt 2048, then 32
    greedy tokens.  One prefill must launch ``flash_attention`` 6 times, all
-   of them ``flash_fwd_wgmma`` (launch counters and profiler), and
+   of them ``flash_fwd_wgmma`` and none ``flash_fwd_mma`` (launch
+   counters and profiler), and
    ``mamba2_scan`` 32 times: each of its four kernels 32 times under the
    profiler, the old ``ssd_chunk_scan`` never.  The kernel path's logits
    (prefill and 32 teacher-forced decode steps) agree with the plain
    path's on the card, in bf16 over 38 layers and in fp32 over one
    full-width 6-layer unit; beside the fp32 38-layer gate, both paths'
-   error against the plain path run in float64 is printed.
+   error against the plain path run in float64 is printed, and the gate's
+   reading with only one of the two kernels on the kernel path.
    Prints prefill s, decode ms per step, tokens per second and peak
    memory; then one more prefill and one decode step under
    ``torch.profiler``.
+6. serving path: gemma-2b at full width and depth (18 layers, d_model
+   2048, 8 heads, one KV head, head_dim 256, vocab 256,000; random seed-0
+   weights in bf16, ~2.5e9 parameters) through the same functions: batch 4
+   x prompt 2048, then 32 greedy tokens.  One prefill must launch
+   ``flash_attention`` 18 times, all of them ``flash_fwd_mma`` (launch
+   counters and profiler).  The kernel path's logits agree with the plain
+   path's on the card: in bf16 over 18 layers, on each of GEMMA_BF16_SEEDS
+   no further than the plain path's own bf16-vs-fp32 gap; in fp32 over 18
+   layers at batch 1 x prompt 2048 within LOGITS_TOL, both paths' error
+   against the plain path in float64 printed beside it.  Prints prefill s,
+   decode ms per step, tokens per second and peak memory; then one more
+   prefill under ``torch.profiler``.
    On each path the launch counts are reset just before it is driven and
    read just after; every Pallas kernel must have a port that launched on
    its path.
-6. prints the ``kernels`` JSON line and, last, the result line.
+7. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -103,6 +123,7 @@ from repro_torch.kernels.flash_attention.ref import \
     attention_ref  # noqa: E402
 from repro_torch.kernels.gnn_mp import ops as gnn_ops  # noqa: E402
 from repro_torch.kernels.gnn_mp.ref import (build_csr,  # noqa: E402
+                                            segment_sum_pair_ref,
                                             segment_sum_ref)
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref  # noqa: E402
@@ -125,11 +146,13 @@ EPS = 0.2
 REQUESTS = [("llama_layer", "v100x8"), ("llama_block", "mixed_gen4"),
             ("ffnn", "p100x4")]
 GNN_REL_TOL = 1e-5
-# the serving request: zamba2-1.2B at full width, random seed-0 weights
+# the serving requests: zamba2-1.2B and gemma-2b at full width, random
+# seed-0 weights
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "zamba2_1p2b", 4, 2048, 32
+GEMMA_ARCH = "gemma_2b"
 # kernel vs plain: tests/test_kernels.py's bars (flash: atol = rtol =
-# 2e-5 in fp32, 2e-2 in bf16; mamba2_scan: 1e-4 of max(|ref|, 1))
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# 2e-5 in fp32, 2e-2 in bf16 and fp16; mamba2_scan: 1e-4 of max(|ref|, 1))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 SSD_TOL = 1e-4
 # kernel path vs plain path, logits scaled by max(|plain|, 1).  fp32: the
 # kernels agree to summation order, within LOGITS_TOL.  bf16 over 38 random
@@ -139,6 +162,9 @@ SSD_TOL = 1e-4
 # than bf16 itself does (PERF.md)
 LOGITS_TOL = 1e-4
 BF16_SEEDS = (0, 1, 2, 3)
+GEMMA_BF16_SEEDS = (0, 1)
+# the card's name and power limit, as nvidia-smi gives them (set by main)
+CARD = ""
 
 
 def check(ok: bool, what: str) -> None:
@@ -207,73 +233,132 @@ def empty_kernel():
     return fn
 
 
-def check_gnn_mp(dev) -> dict:
-    """Kernel vs plain at the main path's aggregations (llama_layer's two
-    edge directions, d = 64) and on a random 2^20-edge graph."""
+def gnn_bytes(m, n, d, directions=1) -> int:
+    """Bytes one aggregation must move: msg read, out written, the CSR's
+    perm and row_ptr read once, per direction."""
+    return directions * 4 * (m * d + m + (n + 1) + n * d)
+
+
+def check_gnn_mp(dev) -> list:
+    """Kernels vs plain at the main path's aggregations (llama_layer's two
+    edge directions, d = 64) and on a random 2^20-edge graph: the single
+    direction kernel (``segment_sum``) and the pair (``segment_sum_pair``,
+    both directions in one launch, the encoder's call).  Each is timed at
+    the path's shape and the pair also at 2^20 edges, beside its byte
+    bound."""
     g = get_workload("llama_layer")
     edges = torch.as_tensor(g.edge_array(), dtype=torch.long, device=dev)
     gen = torch.Generator(dev).manual_seed(0)
     n, d = g.n, 64
-    cases = [(edges[:, 1], n), (edges[:, 0], n),
-             (torch.randint(0, 2**17, (2**20,), generator=gen, device=dev),
-              2**17)]
-    max_abs = max_rel = 0.0
-    for idx, segs in cases:
-        msg = torch.randn(idx.shape[0], d, generator=gen, device=dev)
-        csr = build_csr(idx, segs)
-        got = gnn_ops.segment_sum(msg, idx, segs, backend="cuda", csr=csr)
-        ref = segment_sum_ref(msg, idx, segs, csr)
-        torch.cuda.synchronize()
+    big_n, big_m = 2**17, 2**20
+    big = torch.randint(0, big_n, (big_m, 2), generator=gen, device=dev)
+    graphs = [(edges, n), (big, big_n)]
+    errs = {"single": [0.0, 0.0], "pair": [0.0, 0.0]}
+
+    def record(kind, got, ref, what):
         err = float((got - ref).abs().max())
         rel = err / max(float(ref.abs().max()), 1e-30)
-        print(f"gnn_mp m={idx.shape[0]} n={segs} d={d}: max_abs_err={err} "
-              f"max_rel_err={rel}")
-        check(rel <= GNN_REL_TOL, f"gnn_mp relative error {rel} > "
-                                  f"{GNN_REL_TOL}")
-        max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
+        print(f"gnn_mp {kind} {what}: max_abs_err={err} max_rel_err={rel}")
+        check(rel <= GNN_REL_TOL, f"gnn_mp {kind} {what}: relative error "
+                                  f"{rel} > {GNN_REL_TOL}")
+        errs[kind] = [max(errs[kind][0], err), max(errs[kind][1], rel)]
 
-    # timing at the main path's shape (incoming direction)
-    idx = edges[:, 1]
-    m = idx.shape[0]
-    msg = torch.randn(m, d, generator=gen, device=dev)
-    csr = build_csr(idx, n)
-    ms = time_ms(lambda: gnn_ops.segment_sum(msg, idx, n, backend="cuda",
-                                             csr=csr))
-    plain_ms = time_ms(lambda: segment_sum_ref(msg, idx, n, csr))
-    library = lambda: torch.zeros(n, d, device=dev).index_add_(0, idx, msg)
-    library_ms = time_ms(library)
-    # device time of the same calls under the profiler, per call: the
-    # library's fill and index_add_ kernels against the kernel's one launch
+    for e, segs in graphs:
+        m = e.shape[0]
+        src, dst = e[:, 0], e[:, 1]
+        csr = (build_csr(dst, segs), build_csr(src, segs))
+        msg_in, msg_out = (torch.randn(m, d, generator=gen, device=dev)
+                           for _ in range(2))
+        refs = (segment_sum_ref(msg_in, dst, segs, csr[0]),
+                segment_sum_ref(msg_out, src, segs, csr[1]))
+        for idx, msg, c, ref, name in ((dst, msg_in, csr[0], refs[0], "dst"),
+                                       (src, msg_out, csr[1], refs[1],
+                                        "src")):
+            got = gnn_ops.segment_sum(msg, idx, segs, backend="cuda", csr=c)
+            record("single", got, ref, f"m={m} n={segs} d={d} by {name}")
+        got = gnn_ops.segment_sum_pair(msg_in, dst, msg_out, src, segs,
+                                       backend="cuda", csr=csr)
+        for i, name in enumerate(("dst", "src")):
+            record("pair", got[i], refs[i], f"m={m} n={segs} d={d} by {name}")
+
+    # timing at the main path's shape (single: the incoming direction)
     calls = 20
-    _, lib_rows = _profiled(lambda: [library() for _ in range(calls)])
-    _, k_rows = _profiled(lambda: [gnn_ops.segment_sum(
-        msg, idx, n, backend="cuda", csr=csr) for _ in range(calls)])
-    # the floor of one launch: an empty kernel, timed the same way
     empty = empty_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _, empty_rows = _profiled(lambda: [_build.check("empty", empty(stream))
                                        for _ in range(calls)])
-    library_device_ms = sum(r[0] for r in lib_rows) * 1e-3 / calls
     empty_device_ms = sum(r[0] for r in empty_rows) * 1e-3 / calls
-    device_ms = per_launch_ms(k_rows, (("k", "segment_sum_csr"),))["k"]
-    print(f"gnn_mp m={m} n={n} d={d}: device ms per call: kernel "
-          f"{device_ms:.6f}, index_add_ {library_device_ms:.6f} ("
-          + ", ".join(f"{c // calls} x {key[:40]}" for _, c, key in lib_rows)
-          + f"), empty kernel {empty_device_ms:.6f} ("
-          + ", ".join(f"{c // calls} x {key[:40]}"
-                      for _, c, key in empty_rows) + ")")
-    nbytes = 4 * (m * d + m + (n + 1) + n * d)    # msg, perm, row_ptr, out
-    b_ms, b_by = bound_ms(nbytes, m * d)
-    return {"name": "gnn_mp", "route": "cuda",
+    entries = []
+    for e, segs in graphs:
+        m = e.shape[0]
+        src, dst = e[:, 0], e[:, 1]
+        csr = (build_csr(dst, segs), build_csr(src, segs))
+        msg_in, msg_out = (torch.randn(m, d, generator=gen, device=dev)
+                           for _ in range(2))
+        single = lambda: gnn_ops.segment_sum(msg_in, dst, segs,
+                                             backend="cuda", csr=csr[0])
+        pair = lambda: gnn_ops.segment_sum_pair(msg_in, dst, msg_out, src,
+                                                segs, backend="cuda", csr=csr)
+        lib1 = lambda: torch.zeros(segs, d, device=dev).index_add_(0, dst,
+                                                                 msg_in)
+
+        def lib2():
+            out = torch.zeros(2, segs, d, device=dev)
+            out[0].index_add_(0, dst, msg_in)
+            out[1].index_add_(0, src, msg_out)
+            return out
+        it = 200 if segs == n else 20
+        row = {}
+        for kind, kern, lib, tag, nd in (
+                ("single", single, lib1, "segment_sum_csr", 1),
+                ("pair", pair, lib2, "segment_sum_pair", 2)):
+            if kind == "single" and segs != n:
+                continue
+            ms = time_ms(kern, iters=it)
+            library_ms = time_ms(lib, iters=it)
+            plain = ((lambda: segment_sum_ref(msg_in, dst, segs, csr[0]))
+                     if kind == "single" else
+                     (lambda: segment_sum_pair_ref(msg_in, dst, msg_out, src,
+                                                   segs, csr)))
+            plain_ms = time_ms(plain, iters=max(it // 10, 2))
+            _, lib_rows = _profiled(lambda: [lib() for _ in range(calls)])
+            _, k_rows = _profiled(lambda: [kern() for _ in range(calls)])
+            lib_dev = sum(r[0] for r in lib_rows) * 1e-3 / calls
+            dev_ms = per_launch_ms(k_rows, (("k", tag),))["k"]
+            b_ms, b_by = bound_ms(gnn_bytes(m, segs, d, nd), nd * m * d)
+            print(f"gnn_mp {kind} m={m} n={segs} d={d} ({CARD}): {ms:.6f} ms "
+                  f"per call, {dev_ms:.6f} ms device ({b_ms / dev_ms:.4f} of "
+                  f"the {b_by} bound {b_ms:.6f} ms); plain {plain_ms:.6f} "
+                  f"ms; library {library_ms:.6f} ms per call, {lib_dev:.6f} "
+                  f"ms device (" + ", ".join(
+                      f"{c // calls} x {key[:40]}" for _, c, key in lib_rows)
+                  + f"); an empty kernel {empty_device_ms:.6f} ms device")
+            row[kind] = {"ms": ms, "timed_device_ms": dev_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": library_ms,
+                         "library_device_ms": lib_dev,
+                         "bound_share": b_ms / dev_ms}
+        entries.append(row)
+    path, big_row = entries
+    single = {"name": "gnn_mp", "route": "cuda",
+              "source": "src/repro_torch/csrc/gnn_mp.cu",
+              "replaces": "src/repro/kernels/gnn_mp/kernel.py:31",
+              "kernel": "segment_sum_csr", "launches": 0,
+              "max_abs_err": errs["single"][0],
+              "max_rel_err": errs["single"][1], **path["single"],
+              "empty_kernel_device_ms": empty_device_ms,
+              "shape": {"m": edges.shape[0], "n": n, "d": d}}
+    pair = {"name": "gnn_mp_pair", "route": "cuda",
             "source": "src/repro_torch/csrc/gnn_mp.cu",
             "replaces": "src/repro/kernels/gnn_mp/kernel.py:31",
-            "launches": 0, "max_abs_err": max_abs, "max_rel_err": max_rel,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "timed_device_ms": device_ms,
-            "library_device_ms": library_device_ms,
-            "empty_kernel_device_ms": empty_device_ms,
-            "shape": {"m": m, "n": n, "d": d}}
+            "kernel": "segment_sum_pair", "launches": 0,
+            "max_abs_err": errs["pair"][0], "max_rel_err": errs["pair"][1],
+            **path["pair"], "empty_kernel_device_ms": empty_device_ms,
+            "big": {**big_row["pair"], "m": big_m, "n": big_n, "d": d},
+            "library": "zeros + index_add_ per direction",
+            "shape": {"m": edges.shape[0], "n": n, "d": d,
+                      "directions": 2}}
+    return [single, pair]
 
 
 # ---------------------------------------------------------- wc_oracle
@@ -480,27 +565,79 @@ def _qkv(gen, B, S, H, Hkv, d, dtype, dev):
             for h in (H, Hkv, Hkv)]
 
 
-def check_flash(dev, cfg) -> dict:
-    """Kernel vs plain at the serving shape (bf16 and fp32) and on random
-    shapes with GQA, ragged S, S = 1 and non-causal masks.  bf16 at d 64
-    and 128 runs ``flash_fwd_wgmma``, the rest ``flash_fwd``; both are
-    timed at the serving shape, each against its bound, its plain version
-    and ``scaled_dot_product_attention`` on the same inputs."""
+def _sdpa_inputs(q, k, v):
+    """(B, H, S, d) copies for ``scaled_dot_product_attention``, KV heads
+    repeated over their group (made outside the timed calls)."""
+    G = q.shape[2] // k.shape[2]
+    return [x.repeat_interleave(r, 2).transpose(1, 2).contiguous()
+            for x, r in ((q, 1), (k, G), (v, G))]
+
+
+def time_flash(dev, gen, shape, dt, rate) -> dict:
+    """One kernel at one causal shape: per call and device time, the
+    bound, the plain version and ``scaled_dot_product_attention``."""
+    B, S, H, Hkv, d = shape
+    q, k, v = _qkv(gen, B, S, H, Hkv, d, dt, dev)
+    name = "flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, d) else "flash_fwd_mma"
+    kern = lambda: fa_ops.flash_attention(q, k, v, backend="cuda")
+    ms = time_ms(kern, iters=30, warmup=3)
+    _, rows = _profiled(lambda: [kern() for _ in range(5)])
+    dev_ms = per_launch_ms(rows, (("k", name + "<"),))["k"]
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1)
+    qt, kt, vt = _sdpa_inputs(q, k, v)
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True),
+                         iters=30, warmup=3)
+    # the causal half: S(S+1)/2 (query, key) pairs, 2d flops each for
+    # q kᵀ and for p v; q, k, v read and o written once
+    flops = 4.0 * B * H * d * S * (S + 1) / 2
+    elems = 2 * B * S * H * d + 2 * B * S * Hkv * d
+    b_ms, b_by = bound_ms(q.element_size() * elems, flops, rate)
+    print(f"flash_attention {str(dt).split('.')[-1]} B={B} S={S} H={H} "
+          f"Hkv={Hkv} d={d} ({name}, {CARD}): {ms:.5f} ms per call, "
+          f"{dev_ms:.5f} ms device, {flops / ms * 1e-9:.1f} TFLOP/s; bound "
+          f"{b_ms:.5f} ms ({b_by}, {b_ms / dev_ms:.4f} of it); plain "
+          f"{plain_ms:.5f} ms; scaled_dot_product_attention "
+          f"{library_ms:.5f} ms")
+    return {"ms": ms, "timed_device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "tflops": flops / ms * 1e-9,
+            "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "d": d,
+                      "dtype": str(dt).split(".")[-1], "causal": True}}
+
+
+def check_flash(dev, cfg, gemma) -> list:
+    """Kernels vs plain at zamba2's serving shape (bf16 and fp32), at
+    gemma-2b's (bf16, d 256, one KV head) and on random shapes with GQA,
+    MQA, ragged S, S = 1, non-causal masks and d up to 256 in fp32, bf16
+    and fp16.  bf16 at d 64 and 128 runs ``flash_fwd_wgmma``, the rest
+    ``flash_fwd_mma``.  Times ``flash_fwd_wgmma`` at zamba2's bf16 shape
+    (and ``flash_fwd_mma`` on the same inputs through its C entry point),
+    ``flash_fwd_mma`` in fp32 at zamba2's shape and in bf16 at gemma's,
+    each against its bound, its plain version and
+    ``scaled_dot_product_attention``."""
     gen = torch.Generator(dev).manual_seed(1)
     rng = np.random.default_rng(1)
     B, S, H, d = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
     Hkv = cfg.n_kv_heads
+    gshape = (SERVE_BATCH, SERVE_PROMPT, gemma.n_heads, gemma.n_kv_heads,
+              gemma.head_dim)
     cases = [(B, S, H, Hkv, d, dt, True) for dt in (torch.bfloat16,
                                                     torch.float32)]
-    cases += [(1, 1, 4, 2, 64, torch.bfloat16, True),
-              (2, 333, 8, 2, 128, torch.float32, False)]
+    cases += [(*gshape, torch.bfloat16, True),
+              (1, S, gemma.n_heads, 1, gemma.head_dim, torch.float32, True),
+              (1, 1, 4, 2, 64, torch.bfloat16, True),
+              (1, 1, 8, 1, 256, torch.float16, True),
+              (2, 333, 8, 2, 128, torch.float32, False),
+              (2, 333, 8, 1, 256, torch.float16, False)]
+    types = [torch.bfloat16, torch.float32, torch.float16]
     for _ in range(8):
         hkv = int(rng.integers(1, 5))
         cases.append((int(rng.integers(1, 4)), int(rng.integers(1, 700)),
                       hkv * int(rng.integers(1, 4)), hkv,
-                      int(rng.choice([16, 32, 64, 96, 128])),
-                      [torch.bfloat16, torch.float32][int(rng.integers(2))],
-                      bool(rng.integers(2))))
+                      int(rng.choice([16, 32, 64, 96, 128, 200, 256])),
+                      types[int(rng.integers(3))], bool(rng.integers(2))))
     # the tensor-core kernel at d = 128, ragged and non-causal
     cases += [(1, S, 16, 4, 128, torch.bfloat16, True),
               (2, 777, 8, 2, 64, torch.bfloat16, False),
@@ -519,77 +656,68 @@ def check_flash(dev, cfg) -> dict:
               f"flash_attention {b, s, h, hkv, dd, dt, causal}: max abs "
               f"err {float(diff.max())} > {tol} (+ rel)")
         key = ("flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, dd) else
-               f"flash_fwd {str(dt).split('.')[-1]}")
+               f"flash_fwd_mma {str(dt).split('.')[-1]}")
         errs[key] = max(errs.get(key, 0.0), float(diff.max()))
-    print(f"flash_attention vs plain on {len(cases)} shapes (serving "
-          f"B={B} S={S} H={H} d={d} bf16 and fp32, GQA, ragged, S=1, d=128, "
+    print(f"flash_attention vs plain on {len(cases)} shapes (zamba2 B={B} "
+          f"S={S} H={H} d={d} bf16 and fp32, gemma-2b B={gshape[0]} "
+          f"S={gshape[1]} H={gshape[2]} Hkv={gshape[3]} d={gshape[4]} bf16 "
+          f"and fp32, GQA, MQA, ragged, S=1, d up to 256, fp16, "
           f"non-causal): max abs err by kernel {errs}")
 
-    # the causal half: S(S+1)/2 (query, key) pairs, 2d flops each for
-    # q kᵀ and for p v; q, k, v read and o written once
-    flops = 4.0 * B * H * d * S * (S + 1) / 2
-    elems = 2 * B * S * H * d + 2 * B * S * Hkv * d
-    timed = {}
-    for dt, rate in ((torch.bfloat16, BF16_FLOP_PER_S),
-                     (torch.float32, FP32_FLOP_PER_S)):
-        q, k, v = _qkv(gen, B, S, H, Hkv, d, dt, dev)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        kern = lambda: fa_ops.flash_attention(q, k, v, backend="cuda")
-        ms = time_ms(kern, iters=30, warmup=3)
-        _, rows = _profiled(lambda: [kern() for _ in range(5)])
-        dev_ms = per_launch_ms(rows, (("k", "flash_fwd"),))["k"]
-        plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5,
-                           warmup=1)
-        library_ms = time_ms(lambda: torch.nn.functional.
-                             scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True),
-                             iters=30, warmup=3)
-        b_ms, b_by = bound_ms(q.element_size() * elems, flops, rate)
-        timed[dt] = (ms, dev_ms, plain_ms, library_ms, b_ms, b_by)
-        name = "flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, d) else "flash_fwd"
-        print(f"flash_attention {str(dt).split('.')[-1]} at the serving "
-              f"shape ({name}): "
-              f"{ms:.5f} ms per call, {dev_ms:.5f} ms device, "
-              f"{flops / ms * 1e-9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
-              f"({b_by}); plain {plain_ms:.5f} ms; "
-              f"scaled_dot_product_attention {library_ms:.5f} ms")
-    # the CUDA-core kernel on the same bf16 inputs, through its C entry
-    # point (the wrapper sends bf16 at d = 64 to the tensor-core kernel)
+    # a reading, not a gate: fp32 at zamba2's shape against the plain
+    # version run in float64, beside the plain version's own distance
+    q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.float32, dev)
+    ref64 = attention_ref(q.double(), k.double(), v.double())
+    fp64 = {}
+    for name, out in (("flash_fwd_mma", fa_ops.flash_attention(q, k, v)),
+                      ("plain", attention_ref(q, k, v))):
+        e = (out.double() - ref64).abs()
+        fp64[name] = {"max": float(e.max()), "mean": float(e.mean())}
+    del q, k, v, ref64
+    print(f"flash_attention float32 at zamba2's shape vs the plain version "
+          f"in float64 (abs err): {fp64}")
+    wg = time_flash(dev, gen, (B, S, H, Hkv, d), torch.bfloat16,
+                    BF16_FLOP_PER_S)
+    mma32 = time_flash(dev, gen, (B, S, H, Hkv, d), torch.float32,
+                       FP32_FLOP_PER_S)
+    mma16 = time_flash(dev, gen, gshape, torch.bfloat16, BF16_FLOP_PER_S)
+    # flash_fwd_mma on zamba2's bf16 inputs, through its C entry point
+    # (the wrapper sends bf16 at d = 64 to flash_fwd_wgmma)
     q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.bfloat16, dev)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    simt_ms = time_ms(lambda: lib.flash_attention_fwd(
+    mma_ms = time_ms(lambda: lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         Hkv, d, 1, fa_ops.DTYPE_CODES[torch.bfloat16], stream),
         iters=30, warmup=3)
     check(float((out.float() - fa_ops.flash_attention(q, k, v).float())
                 .abs().max()) <= 2 * FLASH_TOL[torch.bfloat16],
-          "flash_fwd and flash_fwd_wgmma agree on bf16")
+          "flash_fwd_mma and flash_fwd_wgmma agree on bf16")
     wg_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), iters=30,
                     warmup=3)
-    print(f"flash_attention bf16, same inputs, one after the other: "
-          f"flash_fwd {simt_ms:.5f} ms, flash_fwd_wgmma {wg_ms:.5f} ms "
-          f"({simt_ms / wg_ms:.2f}x)")
-    ms, dev_ms, plain_ms, library_ms, b_ms, b_by = timed[torch.bfloat16]
-    ms32, dev32, plain32, lib32, b32, by32 = timed[torch.float32]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-            "kernel": "flash_fwd_wgmma",
-            "launches": 0, "max_abs_err": errs["flash_fwd_wgmma"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "tflops": flops / ms * 1e-9, "timed_device_ms": dev_ms,
-            "flash_fwd_bf16_ms": simt_ms,
-            "fp32_kernel": "flash_fwd",
-            "fp32_source": "src/repro_torch/csrc/flash_attention.cu",
-            "max_abs_err_fp32": errs["flash_fwd float32"],
-            "fp32_ms": ms32, "fp32_device_ms": dev32,
-            "fp32_plain_ms": plain32, "fp32_bound_ms": b32,
-            "fp32_bound_by": by32, "fp32_library_ms": lib32,
-            "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "d": d,
-                      "dtype": "bfloat16", "causal": True}}
+    print(f"flash_attention bf16 at zamba2's shape, same inputs, one after "
+          f"the other: flash_fwd_mma {mma_ms:.5f} ms, flash_fwd_wgmma "
+          f"{wg_ms:.5f} ms ({mma_ms / wg_ms:.2f}x)")
+    shape_wg = wg.pop("shape")
+    shape16 = mma16.pop("shape")
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+             "kernel": "flash_fwd_wgmma", "launches": 0,
+             "max_abs_err": errs["flash_fwd_wgmma"], **wg,
+             "flash_fwd_mma_bf16_ms": mma_ms, "shape": shape_wg},
+            {"name": "flash_attention_mma", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+             "kernel": "flash_fwd_mma", "launches": 0,
+             "max_abs_err": max(v_ for k_, v_ in errs.items()
+                                if k_.startswith("flash_fwd_mma")),
+             "max_abs_err_by_type": {k_.split()[-1]: v_ for k_, v_
+                                     in errs.items()
+                                     if k_.startswith("flash_fwd_mma")},
+             **mma16, "shape": shape16,
+             "fp32": mma32, "fp32_vs_fp64": fp64}]
 
 
 # ------------------------------------------------------- mamba2_scan
@@ -677,6 +805,21 @@ def check_mamba2(dev, cfg) -> dict:
           f"ragged): y and state within {SSD_TOL} of max(|ref|, 1); max abs "
           f"err {max_err}")
 
+    # a reading, not a gate: y at the serving shape against the plain
+    # version run in float64, beside the plain version's own distance
+    q, k, v, log_a, st0 = _ssd_inputs(gen, B, S, H, N, P, dev, True)
+    y64, _ = ssd_scan_ref(*(x.double() for x in (q, k, v, log_a)), L,
+                          st0.double())
+    fp64 = {}
+    for name, (y, _) in (("kernel", ssd_ops.ssd_scan(q, k, v, log_a, L,
+                                                    st0, backend="cuda")),
+                         ("plain", ssd_scan_ref(q, k, v, log_a, L, st0))):
+        e = (y.double() - y64).abs()
+        fp64[name] = {"max": float(e.max()), "mean": float(e.mean())}
+    del y64
+    print(f"mamba2_scan y at the serving shape vs the plain version in "
+          f"float64 (abs err): {fp64}")
+
     q, k, v, log_a, st0 = _ssd_inputs(gen, B, S, H, N, P, dev)
     st0 = torch.zeros(B, H, P, N, device=dev)       # prefill's initial state
     kern = lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0, backend="cuda")
@@ -720,6 +863,7 @@ def check_mamba2(dev, cfg) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
             "tc_flops_issued": 3 * tc_flops, "library_ms": None,
+            "y_vs_fp64": fp64,
             "shape": {"B": B, "S": S, "H": H, "N": N, "P": P, "chunk": L}}
 
 
@@ -734,24 +878,29 @@ def main_path(dev):
         encode(tr.params, tr.gd, tr.encoder_backend)
         tr.default_engine().run_batch(np.zeros((1, tr.g.n), np.int64))
     sync(dev)
-    gnn_ops.launches = wc_ops.launches = wc_ops.trip_launches = 0
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    count = lambda: (gnn_ops.pair_launches, gnn_ops.launches,  # noqa: E731
+                     wc_ops.launches, wc_ops.trip_launches)
     answers, per_request = [], []
     for tr in trainers:
-        g0, w0, t0 = gnn_ops.launches, wc_ops.launches, wc_ops.trip_launches
+        c0 = count()
         answers.append(tr.place(n_samples=K_POP, eps=EPS))
-        per_request.append((gnn_ops.launches - g0, wc_ops.launches - w0,
-                            wc_ops.trip_launches - t0))
-    launches = {"gnn_mp": gnn_ops.launches, "wc_oracle": wc_ops.launches,
-                "wc_oracle_trips": wc_ops.trip_launches}
+        per_request.append(tuple(b - a for a, b in zip(c0, count())))
+    launches = dict(zip(("gnn_mp_pair", "gnn_mp", "wc_oracle",
+                         "wc_oracle_trips"), count()))
     return trainers, answers, per_request, launches
 
 
 def check_main_path(trainers, answers, per_request, dev) -> None:
-    for (gname, fleet), tr, pl, (lg, lw, lt) in zip(REQUESTS, trainers,
-                                                    answers, per_request):
+    for (gname, fleet), tr, pl, (lp, lg, lw, lt) in zip(
+            REQUESTS, trainers, answers, per_request):
         g = tr.g
         check(tr.encoder_backend == tr.oracle_backend == "cuda",
               "backends default to cuda on the card")
+        check((lp, lg) == (len(tr.params["gnn"]["layers"]), 0) == (2, 0),
+              f"{gname}: the encoder is one gnn_mp pair launch a GNN layer "
+              f"and no single-direction launch: {lp}, {lg}")
         check((lw, lt) == (0, 1), f"{gname}: the oracle is one wc_trips "
                                   f"launch and no wc_step launch: {lt}, {lw}")
         check(pl.population.shape == (K_POP, g.n), "population shape")
@@ -776,7 +925,8 @@ def check_main_path(trainers, answers, per_request, dev) -> None:
               f"cp_ms={cp_ms * 1e3:.6f} encode_s={sec['encode']:.6f} "
               f"rollout_s={sec['rollout']:.6f} "
               f"oracle_s={sec['oracle']:.6f} "
-              f"launches gnn_mp={lg} wc_trips={lt} wc_step={lw}")
+              f"launches gnn_mp_pair={lp} gnn_mp={lg} wc_trips={lt} "
+              f"wc_step={lw}")
 
     # small input against the CPU reference: same params, same inputs
     tr, pl = trainers[-1], answers[-1]
@@ -819,6 +969,7 @@ def profile_request(tr, untraced_s: float) -> dict:
     for us, count, key in rows[:8]:
         print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
     return per_launch_ms(rows, (("gnn_mp", "segment_sum_csr"),
+                                ("gnn_mp_pair", "segment_sum_pair"),
                                 ("wc_oracle", "wc_step("),
                                 ("wc_oracle_trips", "wc_trips<")))
 
@@ -846,16 +997,19 @@ def per_launch_ms(rows, tags) -> dict:
 
 
 # ------------------------------------------------------ serving path
-def teacher_forced(params, cfg, prompt, tokens, backend, state_dtype):
+def teacher_forced(params, cfg, prompt, tokens, backend, state_dtype,
+                   ssm_backend=None):
     """Prefill ``prompt``, then one decode step per column of ``tokens``
     (fed, not sampled); -> the logits of prefill's last position and of
-    every step."""
+    every step.  ``backend`` serves attention and, unless ``ssm_backend``
+    is given, the Mamba2 scan."""
     B, S = prompt.shape
     T = tokens.shape[1]
     state = init_decode_state(cfg, B, S + T, dtype=state_dtype,
                               device=prompt.device)
-    prefill = make_prefill_step(cfg, S + T, backend, backend)
-    decode = make_decode_step(cfg, backend, backend)
+    ssm_backend = ssm_backend or backend
+    prefill = make_prefill_step(cfg, S + T, backend, ssm_backend)
+    decode = make_decode_step(cfg, backend, ssm_backend)
     with torch.inference_mode():
         logits, state = prefill(params, {"tokens": prompt}, state)
         out = [logits]
@@ -909,11 +1063,11 @@ def argmax_agreement(a: list, b: list) -> float:
     return float(torch.stack(same).mean())
 
 
-def serve_path(dev):
-    """The serving request through repro_torch.launch.serve's functions:
-    zamba2-1.2B at full width, batch 4 x prompt 2048, 32 greedy tokens.
-    Launch counts are reset just before and read just after."""
-    cfg = get_config(SERVE_ARCH)
+def serve_path(dev, arch):
+    """A serving request through repro_torch.launch.serve's functions: the
+    config at full width, batch 4 x prompt 2048, 32 greedy tokens.  Launch
+    counts are reset just before and read just after."""
+    cfg = get_config(arch)
     params = load_model(cfg, seed=0, device=dev)
     prompt = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
                            device=dev)
@@ -921,13 +1075,33 @@ def serve_path(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = ssd_ops.launches = 0
-    fa_ops.kernel_launches.update(flash_fwd_wgmma=0, flash_fwd=0)
+    fa_ops.kernel_launches.update(flash_fwd_wgmma=0, flash_fwd_mma=0)
     res = generate(params, cfg, prompt, SERVE_GEN)
     launches = {"flash_attention": fa_ops.launches,
-                "mamba2_scan": ssd_ops.launches,
-                "flash_fwd_wgmma": fa_ops.kernel_launches["flash_fwd_wgmma"]}
+                "mamba2_scan": ssd_ops.launches, **fa_ops.kernel_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return cfg, params, prompt, res, launches, peak_gb
+
+
+def print_serve(cfg, res, launches, peak_gb) -> None:
+    steps = SERVE_GEN - 1
+    print(f"serve {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"random seed-0 weights, {cfg.compute_dtype}, {CARD}): batch "
+          f"{SERVE_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
+          f"prefill_s={res.prefill_s:.6f} prefill_tokens_per_s="
+          f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f} "
+          f"decode_ms_per_step={res.decode_ms_per_step:.6f} "
+          f"decode_tokens_per_s={SERVE_BATCH * steps / res.decode_s:.1f} "
+          f"peak_memory_gb={peak_gb:.3f} launches {launches}")
+
+
+def check_outputs(cfg, res) -> None:
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+          f"{cfg.name}: generated tokens")
+    check(all(lg.shape == (SERVE_BATCH, cfg.vocab)
+              and bool(torch.isfinite(lg).all()) for lg in res.logits),
+          f"{cfg.name}: finite logits of the expected shape")
 
 
 def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
@@ -936,25 +1110,13 @@ def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
     check((cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 2048, 32000),
           "zamba2-1.2B at its published width")
     check(launches == {"flash_attention": n_attn, "mamba2_scan": n_mamba,
-                       "flash_fwd_wgmma": n_attn}
-          == {"flash_attention": 6, "mamba2_scan": 32, "flash_fwd_wgmma": 6},
+                       "flash_fwd_wgmma": n_attn, "flash_fwd_mma": 0}
+          == {"flash_attention": 6, "mamba2_scan": 32, "flash_fwd_wgmma": 6,
+              "flash_fwd_mma": 0},
           f"one prefill launches flash_attention 6x, all flash_fwd_wgmma, "
           f"and mamba2_scan 32x: {launches}")
-    check(res.tokens.shape == (SERVE_BATCH, SERVE_GEN)
-          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
-          "generated tokens")
-    check(all(lg.shape == (SERVE_BATCH, cfg.vocab)
-              and bool(torch.isfinite(lg).all()) for lg in res.logits),
-          "finite logits of the expected shape")
-    steps = SERVE_GEN - 1
-    print(f"serve {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"random seed-0 weights, {cfg.compute_dtype}): batch "
-          f"{SERVE_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
-          f"prefill_s={res.prefill_s:.6f} prefill_tokens_per_s="
-          f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f} "
-          f"decode_ms_per_step={res.decode_ms_per_step:.6f} "
-          f"decode_tokens_per_s={SERVE_BATCH * steps / res.decode_s:.1f} "
-          f"peak_memory_gb={peak_gb:.3f} launches {launches}")
+    check_outputs(cfg, res)
+    print_serve(cfg, res, launches, peak_gb)
     # fp32 on the same draws (init_params is fp32; the cast is a no-op).
     # bf16 on several seeds, each against its own plain fp32 logits; the
     # gaps of all seeds are printed before any is checked
@@ -987,6 +1149,14 @@ def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
                 f"{cfg.name} fp32, {cfg.n_layers} layers", plain=plain32,
                 fp64=plain64)
             del plain64
+            # readings beside the gate: each kernel alone on the kernel path
+            for attn, ssm in (("cuda", "torch"), ("torch", "cuda")):
+                one = teacher_forced(p32, cfg32, pr, toks, attn,
+                                     torch.float32, ssm)
+                print(f"{cfg.name} fp32, {cfg.n_layers} layers, attention "
+                      f"{attn}, mamba2_scan {ssm}: vs the plain path "
+                      f"{max(scaled_err(a, b) for a, b in zip(one, plain32))}")
+                del one
             check(err <= tol, f"fp32 {cfg.n_layers} layers: kernel vs plain "
                               f"logits {err} > {tol}")
         del p16, p32, plain32
@@ -999,6 +1169,63 @@ def check_serve_path(cfg, params, prompt, res, launches, peak_gb, dev):
                              f"{cfg.name} fp32, one full-width unit "
                              f"(6 layers)")
     check(err <= tol, f"fp32 6 layers: kernel vs plain logits {err} > {tol}")
+
+
+def check_gemma_path(cfg, params, prompt, res, launches, peak_gb, dev):
+    """gemma-2b: launches, outputs, and its logits gates: bf16 over 18
+    layers on each of GEMMA_BF16_SEEDS against the plain path's own bf16
+    gap, fp32 over 18 layers at batch 1 within LOGITS_TOL (the fp64
+    reading beside it)."""
+    n_attn = cfg.pattern_for_depth().count("attn")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.head_dim,
+           cfg.n_kv_heads) == (18, 2048, 256000, 256, 1),
+          "gemma-2b at its published width and depth")
+    check(launches == {"flash_attention": n_attn, "mamba2_scan": 0,
+                       "flash_fwd_wgmma": 0, "flash_fwd_mma": n_attn}
+          and n_attn == 18,
+          f"one gemma-2b prefill launches flash_attention 18x, all "
+          f"flash_fwd_mma: {launches}")
+    check_outputs(cfg, res)
+    print_serve(cfg, res, launches, peak_gb)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gaps = []
+    for seed in GEMMA_BF16_SEEDS:
+        p16, toks, pr = params, res.tokens, prompt
+        if seed:
+            p16 = load_model(cfg, seed=seed, device=dev)
+            pr = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=seed,
+                               device=dev)
+            toks = generate(p16, cfg, pr, SERVE_GEN).tokens
+        p32 = load_model(cfg32, seed=seed, device=dev)
+        plain32 = teacher_forced(p32, cfg32, pr, toks, "torch",
+                                 torch.float32)
+        del p32
+        gaps.append(compare_paths(
+            p16, cfg, pr, toks, torch.bfloat16,
+            f"{cfg.name} bf16, {cfg.n_layers} layers, seed {seed}",
+            fp32=plain32))
+        del p16, plain32
+        torch.cuda.empty_cache()
+    for seed, (err, tol) in zip(GEMMA_BF16_SEEDS, gaps):
+        check(err <= tol, f"{cfg.name} bf16 seed {seed}: kernel vs plain "
+                          f"logits {err} > the plain path's own bf16 gap "
+                          f"{tol}")
+    # fp32 over the full depth at batch 1, the fp64 reading beside it
+    p32 = load_model(cfg32, seed=0, device=dev)
+    pr, toks = prompt[:1], res.tokens[:1]
+    plain32 = teacher_forced(p32, cfg32, pr, toks, "torch", torch.float32)
+    p64 = tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                   p32)
+    plain64 = teacher_forced(p64, cfg32, pr, toks, "torch", torch.float64)
+    del p64
+    torch.cuda.empty_cache()
+    err, tol = compare_paths(p32, cfg32, pr, toks, torch.float32,
+                             f"{cfg.name} fp32, {cfg.n_layers} layers, "
+                             f"batch 1", plain=plain32, fp64=plain64)
+    del p32, plain32, plain64
+    torch.cuda.empty_cache()
+    check(err <= tol, f"{cfg.name} fp32 {cfg.n_layers} layers: kernel vs "
+                      f"plain logits {err} > {tol}")
 
 
 def _profiled(fn):
@@ -1015,9 +1242,10 @@ def _profiled(fn):
     return traced_s, device_rows(prof)
 
 
-def profile_serve(params, cfg, prompt, res) -> dict:
+def profile_serve(params, cfg, prompt, res, expect: dict) -> dict:
     """One more prefill, then one decode step, under ``torch.profiler``:
-    device time per kernel name and the device's busy share of each."""
+    device time per kernel name and the device's busy share of each.
+    ``expect``: the prefill's launches by kernel-name tag."""
     B, S = prompt.shape
     state = init_decode_state(cfg, B, S + SERVE_GEN, device=prompt.device)
     prefill = make_prefill_step(cfg, S + SERVE_GEN)
@@ -1041,24 +1269,22 @@ def profile_serve(params, cfg, prompt, res) -> dict:
             print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
         rows_by_phase[name] = rows
     pre = rows_by_phase["prefill"]
-    tags = ("flash_fwd_wgmma<", "flash_fwd<", "ssd_chunk_scan",
-            *ssd_ops.KERNELS)
-    counts = {tag: sum(c for _, c, key in pre if tag in key) for tag in tags}
+    counts = {tag: sum(c for _, c, key in pre if tag in key)
+              for tag in expect}
     print(f"profile {cfg.name} prefill: kernel launches {counts}")
-    check(counts == {"flash_fwd_wgmma<": 6, "flash_fwd<": 0,
-                     "ssd_chunk_scan": 0,
-                     **{name: 32 for name in ssd_ops.KERNELS}},
-          f"the profiled prefill runs flash_fwd_wgmma 6x, flash_fwd never, "
-          f"each mamba2_scan kernel 32x, ssd_chunk_scan never: {counts}")
+    check(counts == expect, f"the profiled {cfg.name} prefill runs "
+                            f"{expect}: {counts}")
     per = per_launch_ms(pre, (("flash_attention", "flash_fwd_wgmma<"),
+                              ("flash_attention_mma", "flash_fwd_mma<"),
                               *((n, n) for n in ssd_ops.KERNELS)))
     by_kernel = {n: per.pop(n) for n in ssd_ops.KERNELS}
-    # one mamba2_scan call launches each of its kernels once
-    per["mamba2_scan"] = sum(by_kernel.values())
-    print(f"profile {cfg.name} prefill: mamba2_scan device ms per call "
-          f"{per['mamba2_scan']:.5f} = "
-          + " + ".join(f"{n} {t:.5f}" for n, t in by_kernel.items()))
-    return per, by_kernel
+    if all(t is not None for t in by_kernel.values()):
+        # one mamba2_scan call launches each of its kernels once
+        per["mamba2_scan"] = sum(by_kernel.values())
+        print(f"profile {cfg.name} prefill: mamba2_scan device ms per call "
+              f"{per['mamba2_scan']:.5f} = "
+              + " + ".join(f"{n} {t:.5f}" for n, t in by_kernel.items()))
+    return {k: t for k, t in per.items() if t is not None}, by_kernel
 
 
 def main() -> int:
@@ -1069,7 +1295,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -1085,40 +1313,62 @@ def main() -> int:
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}:   {line.strip()}")
 
-    serve_cfg = get_config(SERVE_ARCH)
-    kernels = [check_gnn_mp(dev), check_wc_oracle(dev),
-               check_flash(dev, serve_cfg), check_mamba2(dev, serve_cfg)]
+    serve_cfg, gemma_cfg = get_config(SERVE_ARCH), get_config(GEMMA_ARCH)
+    kernels = [*check_gnn_mp(dev), check_wc_oracle(dev),
+               *check_flash(dev, serve_cfg, gemma_cfg),
+               check_mamba2(dev, serve_cfg)]
 
-    # path 1: placement requests (gnn_mp, wc_oracle's wc_trips)
+    # path 1: placement requests (gnn_mp's pair, wc_oracle's wc_trips)
     trainers, answers, per_request, launches = main_path(dev)
     check_main_path(trainers, answers, per_request, dev)
-    kernels.insert(2, check_wc_trips(dev, trainers, answers))
+    kernels.insert(3, check_wc_trips(dev, trainers, answers))
     by_name = {k["name"]: k for k in kernels}
     device_ms = profile_request(trainers[0], sum(answers[0].seconds.values()))
     del trainers, answers
 
-    # path 2: serving zamba2-1.2B (flash_attention, mamba2_scan)
-    cfg, params, prompt, res, serve_launches, peak_gb = serve_path(dev)
-    launches.update(serve_launches)
+    # path 2: serving zamba2-1.2B (flash_fwd_wgmma, mamba2_scan)
+    cfg, params, prompt, res, serve_launches, peak_gb = serve_path(
+        dev, SERVE_ARCH)
     check_serve_path(cfg, params, prompt, res, serve_launches, peak_gb, dev)
-    serve_ms, ssd_by_kernel = profile_serve(params, cfg, prompt, res)
+    serve_ms, ssd_by_kernel = profile_serve(
+        params, cfg, prompt, res,
+        {"flash_fwd_wgmma<": 6, "flash_fwd_mma<": 0, "ssd_chunk_scan": 0,
+         **{name: 32 for name in ssd_ops.KERNELS}})
     device_ms.update(serve_ms)
     by_name["mamba2_scan"]["device_ms_by_kernel"] = ssd_by_kernel
+    launches["flash_attention"] = serve_launches["flash_fwd_wgmma"]
+    launches["mamba2_scan"] = serve_launches["mamba2_scan"]
+    by_name["flash_attention_mma"]["launches_zamba2_prefill"] = \
+        serve_launches["flash_fwd_mma"]
+    del params, res
+    torch.cuda.empty_cache()
 
-    # the flash_attention entry's kernel is flash_fwd_wgmma
-    launches["flash_attention"] = launches.pop("flash_fwd_wgmma")
+    # path 3: serving gemma-2b (flash_fwd_mma at head_dim 256)
+    cfg, params, prompt, res, gemma_launches, peak_gb = serve_path(
+        dev, GEMMA_ARCH)
+    check_gemma_path(cfg, params, prompt, res, gemma_launches, peak_gb, dev)
+    gemma_ms, _ = profile_serve(params, cfg, prompt, res,
+                                {"flash_fwd_mma<": 18, "flash_fwd_wgmma<": 0})
+    device_ms["flash_attention_mma"] = gemma_ms["flash_attention_mma"]
+    launches["flash_attention_mma"] = gemma_launches["flash_fwd_mma"]
+    del params, res
+
     ported = {}
     for name, k in by_name.items():
         k["launches"] = launches[name]
-        k["device_ms"] = device_ms[name]
+        k["device_ms"] = device_ms.get(name)
         ported[k["replaces"]] = ported.get(k["replaces"], 0) + k["launches"]
     # every Pallas kernel: one of its ports launched on its path (the
-    # oracle's path runs wc_trips; wc_step, its per-trip twin, records 0)
+    # oracle's path runs wc_trips, the encoder gnn_mp's pair; wc_step and
+    # the single-direction gnn_mp record 0)
     for replaces, n in ported.items():
         check(n > 0, f"a port of {replaces} launched on its path")
     check(launches["wc_oracle_trips"] == len(REQUESTS)
           and launches["wc_oracle"] == 0,
           "the placement path ran wc_trips once a request, wc_step never")
+    check(launches["gnn_mp_pair"] == 2 * len(REQUESTS)
+          and launches["gnn_mp"] == 0,
+          "the placement path ran the gnn_mp pair twice a request")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,15 @@
 h_v^[k] = phi(h_v^[k-1], (+)_{u in N(v)} psi(h_u^[k-1], h_v^[k-1], e_uv))
 
 Aggregation runs over both edge directions with separate psi networks,
-and (+) is the ``gnn_mp`` segment-sum: the CUDA kernel on the card, its
-plain version on the CPU or with ``backend="torch"``.
+and (+) is the ``gnn_mp`` segment-sum, both directions of a layer in one
+call (``segment_sum_pair``): one CUDA launch on the card, the plain
+version on the CPU or with ``backend="torch"``.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.gnn_mp.ops import segment_sum
+from ..kernels.gnn_mp.ops import segment_sum_pair
 from ..kernels.gnn_mp.ref import CSR
 from .nn import apply_mlp, init_mlp
 
@@ -43,15 +44,14 @@ def apply_gnn(params, x, edges, edge_feat, backend: str = "torch",
         raise ValueError(f"unknown encoder backend {backend!r}; "
                          f"expected one of {ENCODER_BACKENDS}")
     n = x.shape[0]
-    csr_dst, csr_src = csr if csr is not None else (None, None)
     h = apply_mlp(params["embed"], x)
     src, dst = edges[:, 0], edges[:, 1]
     for lp in params["layers"]:
         hs, hd = h[src], h[dst]
         msg_f = apply_mlp(lp["psi_fwd"], torch.cat([hs, hd, edge_feat], -1))
         msg_b = apply_mlp(lp["psi_bwd"], torch.cat([hd, hs, edge_feat], -1))
-        agg_in = segment_sum(msg_f, dst, n, backend=backend, csr=csr_dst)
-        agg_out = segment_sum(msg_b, src, n, backend=backend, csr=csr_src)
+        agg_in, agg_out = segment_sum_pair(msg_f, dst, msg_b, src, n,
+                                           backend=backend, csr=csr)
         h_new = apply_mlp(lp["phi"], torch.cat([h, agg_in, agg_out], -1))
         h = h + h_new                        # residual for depth stability
     return h

@@ -33,8 +33,10 @@
 //
 // What the design does (each pass one launch on the current stream;
 //   mma.sync m16n8k8 with fragments read from shared memory, operands split
-//   in registers, each of the three terms swept over all of a warp's
-//   fragments before the next; tiles staged by cp.async, double-buffered
+//   in registers, each of the three terms swept over two n-tiles'
+//   fragments before the next, each k-step's products summed from zero and
+//   added in fp32 on the CUDA cores (warp_mma); tiles staged by cp.async,
+//   double-buffered
 //   in the loops over key tiles; row strides padded to 68 or 72 (136)
 //   floats so that fragment reads do not conflict on banks; positions
 //   past S, rows past L, columns past N or P load as zeros):
@@ -169,8 +171,15 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 // a[m * am + k * ak], times ka[k] when kScale; B(k, n) = b[k * bk + n *
 // bn]; a and b point at the warp's first row / column.  acc[mi][ni] is the
 // m16n8 fragment at rows 16 mi + g (+ 8 in [2], [3]), columns 8 ni + 2 q
-// (+ 1 in [1], [3]), lane = 4 g + q.  Each of the three terms sweeps all
-// the fragments, so no mma waits on the one before it.
+// (+ 1 in [1], [3]), lane = 4 g + q.  Each of the three terms sweeps the
+// fragments of two n-tiles, so no mma waits on the one before it.  The
+// tensor cores drop the low bits of each mma's sum instead of rounding it,
+// which biases a long chain of mma into one accumulator: so each k-step's
+// products are summed from zero and added to acc in fp32 on the CUDA cores,
+// which keeps the kernel as close to an fp64 reference as the plain fp32
+// version (y's mean error 9.456e-6 against 9.458e-6 at the serving shape
+// on an H100, as chip_smoke.py prints them) and its fp32 38-layer logits
+// gate under its bar.
 template <bool kScale, int kMI>
 __device__ __forceinline__ void warp_mma(const float* a, int am, int ak,
                                          const float* ka, const float* b,
@@ -199,18 +208,33 @@ __device__ __forceinline__ void warp_mma(const float* a, int am, int ak,
         const int n = 8 * ni + g, k = k0 + q + 4 * j;
         split(b[k * bk + n * bn], bh[ni][j], bl[ni][j]);
       }
+    // the k-step's products summed from zero, then added on the CUDA
+    // cores, two n-tiles at a time (see above)
 #pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
+    for (int n0 = 0; n0 < 4; n0 += 2) {
+      float t[kMI][2][4] = {};
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+      for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
+        for (int ni = 0; ni < 2; ++ni)
+          mma_tf32(t[mi][ni], al[mi], bh[n0 + ni]);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+      for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
+        for (int ni = 0; ni < 2; ++ni)
+          mma_tf32(t[mi][ni], ah[mi], bl[n0 + ni]);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          mma_tf32(t[mi][ni], ah[mi], bh[n0 + ni]);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][n0 + ni][c] += t[mi][ni][c];
+    }
   }
 }
 

@@ -26,7 +26,8 @@ P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points of each source: {symbol: argtypes}; every entry returns
 # a cudaError_t as an int
 ENTRY_POINTS = {
-    "gnn_mp": {"gnn_mp_segment_sum": [P, P, P, P, I, I, P]},
+    "gnn_mp": {"gnn_mp_segment_sum": [P, P, P, P, I, I, P],
+               "gnn_mp_segment_sum_pair": [P] * 8 + [I, I, P]},
     "wc_oracle": {"wc_oracle_step": [P, P, P, P, P, P, I, I, I, P],
                   "wc_oracle_trips": [P] * 15 + [I] * 12 + [P]},
     "flash_attention": {"flash_attention_fwd":

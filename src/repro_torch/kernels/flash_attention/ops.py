@@ -6,9 +6,10 @@ plain version (ref.py) on CPU tensors or when ``backend="torch"``.  Which
 kernel is dispatch by dtype and head dim, not a fallback:
 
 - bf16 with d = 64 or 128: ``flash_fwd_wgmma``
-  (``csrc/flash_attention_sm90.cu``), on the tensor cores;
-- every other dtype and d up to 128: ``flash_fwd``
-  (``csrc/flash_attention.cu``), fp32 on the CUDA cores.
+  (``csrc/flash_attention_sm90.cu``), wgmma on the tensor cores;
+- every other dtype (fp32, fp16) and head dim, d up to 256:
+  ``flash_fwd_mma`` (``csrc/flash_attention.cu``), mma.sync on the tensor
+  cores (3xTF32 for fp32, 16-bit products with P split hi + lo).
 
 Both compute the same function and raise if they cannot launch.  Both take
 the model's (B, S, H, d) layout as it is and map query head h to KV head
@@ -26,19 +27,30 @@ from .ref import attention_ref
 
 BACKENDS = ("torch", "cuda")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)        # bf16 head dims of flash_fwd_wgmma
+# flash_fwd_mma's tiles (csrc/flash_attention.cu, ``Tiles``) by element
+# size in bytes and padded head dim: (query rows, keys) a block
+MMA_TILES = {(4, 64): (128, 32), (4, 128): (128, 32), (4, 256): (64, 32),
+             (2, 64): (128, 32), (2, 128): (128, 64), (2, 256): (64, 64)}
 
 # kernel launches in this process, of either kernel, and of each by name
 # (read and reset by chip_smoke.py)
 launches = 0
-kernel_launches = {"flash_fwd_wgmma": 0, "flash_fwd": 0}
+kernel_launches = {"flash_fwd_wgmma": 0, "flash_fwd_mma": 0}
 
 
 def uses_wgmma(dtype: torch.dtype, d: int) -> bool:
     """Whether a CUDA call on this dtype and head dim runs
-    ``flash_fwd_wgmma`` (else ``flash_fwd``)."""
+    ``flash_fwd_wgmma`` (else ``flash_fwd_mma``)."""
     return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+
+
+def mma_tiles(dtype: torch.dtype, d: int) -> tuple[int, int]:
+    """(query rows, keys) of a ``flash_fwd_mma`` block at this dtype and
+    head dim (d is padded to 64, 128 or 256)."""
+    dp = 64 if d <= 64 else (128 if d <= 128 else 256)
+    return MMA_TILES[(4 if dtype == torch.float32 else 2, dp)]
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -77,7 +89,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         lib = _build.load("flash_attention")
         rc = lib.flash_attention_fwd(*ptrs, B, S, H, Hkv, d, int(causal),
                                      DTYPE_CODES[q.dtype], stream)
-        name = "flash_fwd"
+        name = "flash_fwd_mma"
     _build.check(name, rc)
     launches += 1
     kernel_launches[name] += 1

@@ -51,3 +51,14 @@ def segment_sum_ref(msg: torch.Tensor, dst: torch.Tensor, n: int,
     return torch.where(valid[..., None], gathered,
                        torch.zeros((), dtype=msg.dtype,
                                    device=msg.device)).sum(1)
+
+
+def segment_sum_pair_ref(msg_in: torch.Tensor, dst: torch.Tensor,
+                         msg_out: torch.Tensor, src: torch.Tensor, n: int,
+                         csr: tuple[CSR, CSR] | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both directions of a GNN layer: (segment sum of msg_in by dst,
+    segment sum of msg_out by src), each (n, d)."""
+    csr_dst, csr_src = csr if csr is not None else (None, None)
+    return (segment_sum_ref(msg_in, dst, n, csr_dst),
+            segment_sum_ref(msg_out, src, n, csr_src))

@@ -10,10 +10,11 @@ Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive);
 placements of its state; the
 ``gnn_mp`` segment-sum within 1e-5 of the plain version relative to the
 output's largest magnitude (both sum in fp32, in different orders);
+``segment_sum_pair`` (both directions in one launch) likewise;
 the oracle's makespans with the kernel equal to the plain path's;
-``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16), bf16 at d 64 and
-128 on the tensor-core kernel ``flash_fwd_wgmma`` and everything else on
-``flash_fwd``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
+``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
+and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
+``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
 bars of tests/test_kernels.py.
 """
 import dataclasses
@@ -78,6 +79,52 @@ def test_gnn_mp_kernel_grad_and_empty(cuda):
                               torch.zeros(0, dtype=torch.long, device=cuda), 5)
     assert out.shape == (5, 8) and not out.any()
     assert gnn_ops.launches == before          # m == 0: no launch
+
+
+@pytest.mark.parametrize("m,n,d", [(364, 252, 64), (500, 100, 32),
+                                   (1000, 53, 16), (7, 3, 200), (1, 1, 1),
+                                   (300, 10, 128), (100, 40, 5),
+                                   (2**20, 2**17, 64)])
+def test_gnn_mp_pair_kernel_matches_plain(cuda, m, n, d):
+    """Both directions in one launch, each within 1e-5 of the plain
+    version; isolated rows exactly zero."""
+    g = torch.Generator(cuda).manual_seed(m + d)
+    msg_in, msg_out = (torch.randn(m, d, generator=g, device=cuda)
+                       for _ in range(2))
+    src, dst = (torch.randint(0, n, (m,), generator=g, device=cuda)
+                for _ in range(2))
+    csr = (build_csr(dst, n), build_csr(src, n))
+    before = (gnn_ops.pair_launches, gnn_ops.launches)
+    agg_in, agg_out = gnn_ops.segment_sum_pair(msg_in, dst, msg_out, src, n,
+                                               csr=csr)
+    torch.cuda.synchronize()
+    assert (gnn_ops.pair_launches, gnn_ops.launches) == (before[0] + 1,
+                                                         before[1])
+    for got, msg, idx, c in ((agg_in, msg_in, dst, csr[0]),
+                             (agg_out, msg_out, src, csr[1])):
+        ref = segment_sum_ref(msg, idx, n, c)
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) / scale <= 1e-5
+        assert not got[c.row_ptr[1:] == c.row_ptr[:-1]].any()
+
+
+def test_gnn_mp_pair_kernel_grad_and_empty(cuda):
+    msg_in = torch.randn(50, 8, device=cuda, requires_grad=True)
+    msg_out = torch.randn(50, 8, device=cuda, requires_grad=True)
+    src, dst = (torch.randint(0, 10, (50,), device=cuda) for _ in range(2))
+    w_in, w_out = torch.randn(10, 8, device=cuda), torch.randn(10, 8,
+                                                               device=cuda)
+    before = gnn_ops.pair_launches
+    agg_in, agg_out = gnn_ops.segment_sum_pair(msg_in, dst, msg_out, src, 10)
+    ((agg_in * w_in).sum() + (agg_out * w_out).sum()).backward()
+    assert gnn_ops.pair_launches == before + 1
+    assert torch.equal(msg_in.grad, w_in[dst])
+    assert torch.equal(msg_out.grad, w_out[src])
+    z = torch.zeros(0, 8, device=cuda)
+    e = torch.zeros(0, dtype=torch.long, device=cuda)
+    a, b = gnn_ops.segment_sum_pair(z, e, z, e, 5)
+    assert a.shape == b.shape == (5, 8) and not a.any() and not b.any()
+    assert gnn_ops.pair_launches == before + 1   # m == 0: no launch
 
 
 def _rand_wc_state(rng, B, R, K, device):
@@ -215,9 +262,9 @@ def test_placement_request_on_the_card(cuda):
     g = workloads.ffnn()
     tr = DopplerTrainer(g, get_device_model("p100x4"), seed=0, device=cuda)
     assert (tr.encoder_backend, tr.oracle_backend) == ("cuda", "cuda")
-    g0, w0, t0 = gnn_ops.launches, wc_ops.launches, wc_ops.trip_launches
+    g0, w0, t0 = gnn_ops.pair_launches, wc_ops.launches, wc_ops.trip_launches
     pl = tr.place(n_samples=16)
-    assert gnn_ops.launches - g0 == 4          # 2 layers x 2 directions
+    assert gnn_ops.pair_launches - g0 == 2     # 2 layers, both directions
     assert (wc_ops.launches, wc_ops.trip_launches) == (w0, t0 + 1)
     assert pl.population.shape == (16, g.n) and np.isfinite(pl.makespans).all()
     assert pl.makespan == pl.makespans.min()
@@ -261,35 +308,50 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, d, dtype,
 def test_flash_attention_wgmma_kernel_matches_plain(cuda, B, S, Hq, Hkv, d,
                                                     causal):
     """bf16 at d 64 and 128 runs flash_fwd_wgmma (the per-kernel counter
-    moves, flash_fwd's does not); 2e-2 against the plain version."""
+    moves, flash_fwd_mma's does not); 2e-2 against the plain version."""
     q, k, v = _qkv(cuda, B, S, Hq, Hkv, d, torch.bfloat16, 7 * S + d)
     before = dict(fa_ops.kernel_launches)
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.kernel_launches == {
         "flash_fwd_wgmma": before["flash_fwd_wgmma"] + 1,
-        "flash_fwd": before["flash_fwd"]}
+        "flash_fwd_mma": before["flash_fwd_mma"]}
     ref = attention_ref(q, k, v, causal)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96),
-                                     (torch.bfloat16, 32),
-                                     (torch.float16, 64),
-                                     (torch.float32, 64),
-                                     (torch.float32, 128)])
-def test_flash_attention_other_types_run_flash_fwd(cuda, dtype, d):
-    q, k, v = _qkv(cuda, 2, 200, 4, 2, d, dtype, d)
+MMA_SHAPES = [(2, 200, 4, 2, 96, True), (2, 200, 4, 2, 256, True),
+              (1, 333, 8, 1, 256, False),                    # MQA, ragged
+              (3, 77, 6, 3, 96, False), (1, 1, 8, 1, 256, True),   # S = 1
+              (2, 130, 4, 4, 32, True), (1, 257, 8, 1, 200, True),
+              (4, 2048, 8, 1, 256, True)]                     # gemma's
+MMA_CASES = ([(dt, *shape) for dt in (torch.float32, torch.float16,
+                                      torch.bfloat16) for shape in MMA_SHAPES]
+             + [(dt, 2, 200, 4, 2, d, c) for dt in (torch.float32,
+                                                    torch.float16)
+                for d in (64, 128) for c in (True, False)])
+
+
+@pytest.mark.parametrize("dtype,B,S,Hq,Hkv,d,causal", MMA_CASES)
+def test_flash_attention_other_types_run_flash_fwd_mma(cuda, dtype, B, S,
+                                                       Hq, Hkv, d, causal):
+    """Every case but bf16 at d 64 / 128 runs flash_fwd_mma (its counter
+    moves, flash_fwd_wgmma's does not), d up to 256, GQA and MQA, ragged
+    S and non-causal: 2e-5 (fp32) / 2e-2 (fp16, bf16) of the plain
+    version."""
+    q, k, v = _qkv(cuda, B, S, Hq, Hkv, d, dtype, d + S)
     before = dict(fa_ops.kernel_launches)
-    got = fa_ops.flash_attention(q, k, v)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.kernel_launches == {
         "flash_fwd_wgmma": before["flash_fwd_wgmma"],
-        "flash_fwd": before["flash_fwd"] + 1}
+        "flash_fwd_mma": before["flash_fwd_mma"] + 1}
+    assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal).float(),
                                atol=tol, rtol=tol)
 
 
@@ -311,8 +373,8 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda):
         fa_ops.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError):                  # Hq % Hkv != 0
         fa_ops.flash_attention(q[:, :, :3].contiguous(), k, v)
-    with pytest.raises(ValueError):                  # head_dim > 128
-        fa_ops.flash_attention(*_qkv(cuda, 1, 8, 1, 1, 256,
+    with pytest.raises(ValueError):                  # head_dim > 256
+        fa_ops.flash_attention(*_qkv(cuda, 1, 8, 1, 1, 257,
                                      torch.float32, 0))
     with pytest.raises(ValueError):                  # not contiguous
         fa_ops.flash_attention(q.transpose(1, 2), k, v)

@@ -1,9 +1,11 @@
 """Port kernels' plain versions vs the JAX reference (Pallas in interpret
 mode and the plain jnp refs).
 
-* gnn_mp: ``segment_sum`` within atol 1e-4 of ``segment_sum_mp``
-  (the reference suite's bar) and its gradient exactly equal to
-  ``jax.grad`` of the same (both are the gather ``g[dst]``).
+* gnn_mp: ``segment_sum`` and both directions of ``segment_sum_pair``
+  within atol 1e-4 of ``segment_sum_mp`` (the reference suite's bar) and
+  their gradients exactly equal to ``jax.grad`` of the same (both are the
+  gathers ``g[dst]``, ``g[src]``); ``apply_gnn`` over the pair within 1e-5
+  of the reference's encoder.
 * wc_oracle: ``wc_step`` bit-exact on run_out and e1, rho where the
   episode is alive (isfinite(e1)).
 On the CPU the wrappers take the plain version; the CUDA kernels
@@ -15,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import gnn as jax_gnn
 from repro.kernels.gnn_mp.ops import segment_sum_mp
 from repro.kernels.gnn_mp.ref import segment_sum_ref as jax_segment_sum_ref
 from repro.kernels.wc_oracle.ops import wc_step as jax_wc_step
 from repro.kernels.wc_oracle.ref import wc_step_ref as jax_wc_step_ref
-from repro_torch.kernels.gnn_mp.ops import segment_sum
-from repro_torch.kernels.gnn_mp.ref import build_csr, segment_sum_ref
+from repro_torch.core import gnn
+from repro_torch.kernels.gnn_mp.ops import segment_sum, segment_sum_pair
+from repro_torch.kernels.gnn_mp.ref import (build_csr, segment_sum_pair_ref,
+                                            segment_sum_ref)
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.kernels.wc_oracle.ops import wc_step
 from repro_torch.kernels.wc_oracle.ref import wc_step_ref
 
@@ -102,6 +108,110 @@ def test_segment_sum_rejects_unknown_backend():
     with pytest.raises(ValueError):
         segment_sum(torch.ones(2, 2), torch.zeros(2, dtype=torch.long), 1,
                     backend="pallas")
+
+
+def _pair_inputs(m, n, d, seed):
+    rng = np.random.default_rng(seed)
+    msg_in, msg_out = (rng.standard_normal((m, d)).astype(np.float32)
+                       for _ in range(2))
+    edges = rng.integers(0, n, (m, 2)).astype(np.int32)
+    return msg_in, msg_out, edges[:, 0], edges[:, 1]
+
+
+@pytest.mark.parametrize("m,n,d", [(364, 252, 64), (500, 100, 32),
+                                   (7, 3, 5), (1, 1, 1)])
+def test_segment_sum_pair_matches_jax(m, n, d):
+    """Both directions of one call against two reference calls."""
+    msg_in, msg_out, src, dst = _pair_inputs(m, n, d, m + d)
+    ref_in = segment_sum_mp(jnp.asarray(msg_in), jnp.asarray(dst), n=n,
+                            interpret=True)
+    ref_out = segment_sum_mp(jnp.asarray(msg_out), jnp.asarray(src), n=n,
+                             interpret=True)
+    t = lambda a: torch.from_numpy(a)                      # noqa: E731
+    ti, to = t(dst).long(), t(src).long()
+    csr = (build_csr(ti, n), build_csr(to, n))
+    for backend in ("torch", "cuda"):          # "cuda" on CPU tensors: plain
+        for c in (None, csr):
+            agg_in, agg_out = segment_sum_pair(t(msg_in), ti, t(msg_out), to,
+                                               n, backend=backend, csr=c)
+            np.testing.assert_allclose(agg_in.numpy(), np.asarray(ref_in),
+                                       atol=1e-4, rtol=1e-4)
+            np.testing.assert_allclose(agg_out.numpy(), np.asarray(ref_out),
+                                       atol=1e-4, rtol=1e-4)
+    plain = segment_sum_pair_ref(t(msg_in), ti, t(msg_out), to, n, csr)
+    assert torch.equal(plain[0], agg_in) and torch.equal(plain[1], agg_out)
+
+
+def test_segment_sum_pair_grad_matches_jax():
+    """The pair's backward (g_in[dst], g_out[src]) equals jax.grad of two
+    reference calls exactly, with and without a graph to record."""
+    m, n, d = 64, 16, 8
+    msg_in, msg_out, src, dst = _pair_inputs(m, n, d, seed=5)
+    rng = np.random.default_rng(6)
+    w_in, w_out = (rng.standard_normal((n, d)).astype(np.float32)
+                   for _ in range(2))
+
+    def loss(a, b):
+        return ((segment_sum_mp(a, jnp.asarray(dst), n=n, interpret=True)
+                 * jnp.asarray(w_in)).sum()
+                + (segment_sum_mp(b, jnp.asarray(src), n=n, interpret=True)
+                   * jnp.asarray(w_out)).sum())
+    g_in, g_out = jax.grad(loss, argnums=(0, 1))(jnp.asarray(msg_in),
+                                                 jnp.asarray(msg_out))
+    a = torch.from_numpy(msg_in).requires_grad_(True)
+    b = torch.from_numpy(msg_out).requires_grad_(True)
+    agg_in, agg_out = segment_sum_pair(a, torch.from_numpy(dst).long(), b,
+                                       torch.from_numpy(src).long(), n)
+    ((agg_in * torch.from_numpy(w_in)).sum()
+     + (agg_out * torch.from_numpy(w_out)).sum()).backward()
+    assert np.array_equal(a.grad.numpy(), np.asarray(g_in))
+    assert np.array_equal(b.grad.numpy(), np.asarray(g_out))
+    with torch.no_grad():
+        again = segment_sum_pair(a, torch.from_numpy(dst).long(), b,
+                                 torch.from_numpy(src).long(), n)
+    assert torch.equal(again[0], agg_in) and torch.equal(again[1], agg_out)
+    assert not again[0].requires_grad
+
+
+def test_segment_sum_pair_degenerate():
+    """No edges: zeros, two distinct tensors; isolated rows are zero."""
+    z = torch.zeros(0, 4)
+    e = torch.zeros(0, dtype=torch.long)
+    a, b = segment_sum_pair(z, e, z, e, 3)
+    assert a.shape == b.shape == (3, 4) and not a.any() and not b.any()
+    assert a.data_ptr() != b.data_ptr()
+    msg = torch.arange(4, dtype=torch.float32).reshape(2, 2)
+    a, b = segment_sum_pair(msg, torch.tensor([2, 2]), msg + 1,
+                            torch.tensor([0, 1]), 3)
+    assert torch.equal(a, torch.tensor([[0., 0], [0, 0], [2, 4]]))
+    assert torch.equal(b, torch.tensor([[1., 2], [3, 4], [0, 0]]))
+    with pytest.raises(ValueError):
+        segment_sum_pair(msg, torch.tensor([0, 1]), msg,
+                         torch.tensor([0, 1]), 2, backend="pallas")
+
+
+@pytest.mark.parametrize("jax_backend", ["xla", "pallas"])
+def test_apply_gnn_pair_matches_reference_encoder(jax_backend):
+    """The port's encoder (one segment_sum_pair a layer, with and without
+    the kept CSR) against ``repro.core.gnn.apply_gnn`` on the same
+    parameters, within 1e-5."""
+    n, m, d_in, d_hidden = 40, 90, 7, 16
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((n, d_in)).astype(np.float32)
+    edges = rng.integers(0, n, (m, 2)).astype(np.int32)
+    ef = rng.standard_normal((m, 1)).astype(np.float32)
+    jp = jax_gnn.init_gnn(jax.random.PRNGKey(3), d_in, d_hidden)
+    ref = np.asarray(jax_gnn.apply_gnn(jp, jnp.asarray(x), jnp.asarray(edges),
+                                       jnp.asarray(ef), backend=jax_backend))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    te = torch.from_numpy(edges).long()
+    csr = (build_csr(te[:, 1], n), build_csr(te[:, 0], n))
+    for backend in ("torch", "cuda"):
+        for c in (None, csr):
+            h = gnn.apply_gnn(tp, torch.from_numpy(x), te,
+                              torch.from_numpy(ef), backend=backend, csr=c)
+            np.testing.assert_allclose(h.detach().numpy(), ref, atol=1e-5,
+                                       rtol=0)
 
 
 # ------------------------------------------------------------- wc_oracle

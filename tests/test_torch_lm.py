@@ -6,6 +6,9 @@ run; S = 24 with SSM chunk 8 (three chunks).  The reference's parameters
 (from its own ``init_params``, vectors perturbed so every scale and bias
 counts) are carried across with ``params_from_numpy``.
 
+A few-layer gemma-2b (head_dim 256, one KV head, GeGLU, tied embeddings;
+d_model 512, 2 heads, vocab 512) is held the same way.
+
 Bars: logits of train / prefill / decode within 1e-4 of ``repro``'s
 ``model_apply``, scaled by max(|ref|, 1), at compute_dtype float32.  In
 bf16 the two frameworks round at different places (XLA fuses elementwise
@@ -132,6 +135,40 @@ def test_logits_match_reference(ref_init, ref_params, compute_dtype, tol,
     errs = [_scaled_err(full_t, full_j), _scaled_err(pre_t, pre_j)]
     errs += [_scaled_err(a, b) for a, b in zip(dec_t, dec_j)]
     assert max(errs) <= tol, errs
+
+
+def _gemma_cfgs():
+    """gemma-2b cut to 2 layers, d_model 512, 2 query heads, vocab 512;
+    its head_dim 256, one KV head (MQA), GeGLU and tied embeddings kept."""
+    kw = dict(n_layers=2, d_model=512, n_heads=2, d_ff=1024, vocab=512,
+              compute_dtype="float32")
+    cfg_j = dataclasses.replace(jax_get_config("gemma_2b"), **kw)
+    cfg_t = dataclasses.replace(get_config("gemma_2b"), **kw)
+    assert dataclasses.asdict(cfg_j) == dataclasses.asdict(cfg_t)
+    assert (cfg_t.head_dim, cfg_t.n_kv_heads, cfg_t.act,
+            cfg_t.tie_embeddings) == (256, 1, "geglu", True)
+    return cfg_j, cfg_t
+
+
+def test_gemma_logits_match_reference():
+    """A few-layer gemma (head_dim 256, MQA, GeGLU, tied embeddings):
+    train, prefill and decode logits within 1e-4 of ``repro``'s
+    ``model_apply`` on the same converted weights (the norm vectors
+    perturbed so that every scale counts)."""
+    cfg_j, cfg_t = _gemma_cfgs()
+    rng = np.random.default_rng(2)
+    params = jax.tree_util.tree_map(
+        lambda x: (x + rng.standard_normal(x.shape) * 0.3).astype(x.dtype)
+        if x.ndim - 1 <= 1 and x.shape[-1] <= 512 else x,
+        jax.tree_util.tree_map(np.asarray, jax_tf.init_params(
+            cfg_j, jax.random.PRNGKey(1))))
+    toks = _tokens(cfg_t.vocab)
+    full_j, pre_j, dec_j = _run_jax(cfg_j, params, toks, jnp.float32)
+    full_t, pre_t, dec_t = _run_port(cfg_t, params, toks, torch.float32)
+    assert full_t.shape == (B, S, cfg_t.vocab)
+    errs = [_scaled_err(full_t, full_j), _scaled_err(pre_t, pre_j)]
+    errs += [_scaled_err(a, b) for a, b in zip(dec_t, dec_j)]
+    assert max(errs) <= F32_TOL, errs
 
 
 def test_prefill_decode_matches_own_forward(ref_params):
