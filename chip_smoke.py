@@ -83,10 +83,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    against the plain path in float64 printed beside it.  Prints prefill s,
    decode ms per step, tokens per second and peak memory; then one more
    prefill under ``torch.profiler``.
+7. training path: ``DopplerTrainer(...)`` on the card at the policy's
+   published width on llama_layer x v100x8 (n 252, m 364, nd 8; random
+   seed-0 weights): ``stage1_imitation`` (4 episodes of the CRITICAL-PATH
+   teacher, run as 1 + 3), ``train_rl`` over the trainer's default engine
+   (3 REINFORCE updates of 16 episodes, run as 1 + 2; every reward batch
+   one ``wc_trips`` launch) and one ``stage2_sim_batched`` update on the
+   numpy ``WCSimulator``.  Each episode and update encodes with the
+   ``gnn_mp`` pair (one launch a GNN layer) and replays its actions under
+   autograd (the pair's backward is the gather, as in the reference).  A
+   hard gate holds the first episode and the first update against a twin
+   trainer on the plain backends, on the card, started from the same
+   params and generator state: the same actions, rewards bit-identical,
+   losses within 1e-5 relative, each gradient leaf within 5e-6 of
+   max(1, max|g|), params after the AdamW step within 5e-3.  Prints the
+   seconds per episode and per update by phase, the launches per episode
+   and update, the losses, the makespans per update and peak memory; then
+   one more update under ``torch.profiler`` (device launches, busy share).
    On each path the launch counts are reset just before it is driven and
    read just after; every Pallas kernel must have a port that launched on
    its path.
-7. prints the ``kernels`` JSON line and, last, the result line.
+8. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -111,7 +128,7 @@ from repro_torch.core.devices import (PRESETS,  # noqa: E402
                                       get_device_model, uniform_box)
 from repro_torch.core.graph import DataflowGraph  # noqa: E402
 from repro_torch.core.heuristics import critical_path_assignment  # noqa: E402
-from repro_torch.core.nn import tree_map  # noqa: E402
+from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, trip_inputs)
 from repro_torch.core.training import DopplerTrainer  # noqa: E402
@@ -135,6 +152,7 @@ from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models.transformer import init_decode_state  # noqa: E402
+from repro_torch.train.optim import AdamState  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -163,6 +181,14 @@ SSD_TOL = 1e-4
 LOGITS_TOL = 1e-4
 BF16_SEEDS = (0, 1, 2, 3)
 GEMMA_BF16_SEEDS = (0, 1)
+# the training path: Stage I and Stage II at the policy's published width
+# on the placement slice's main shape; the gate (kernel backends vs plain
+# on the card, from one state) at the reference's bars: losses relative,
+# gradients of max(1, max|g|) per leaf
+# (tests/test_train_fused.py:84), params after one AdamW step (:300)
+TRAIN_REQUEST = ("llama_layer", "v100x8")
+TRAIN_STAGE1, TRAIN_UPDATES, TRAIN_K = 4, 3, 16
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 5e-6, 5e-3
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -1228,6 +1254,226 @@ def check_gemma_path(cfg, params, prompt, res, launches, peak_gb, dev):
                       f"plain logits {err} > {tol}")
 
 
+# ---------------------------------------------------------- training path
+def _launch_counts() -> dict:
+    return {"gnn_mp_pair": gnn_ops.pair_launches, "gnn_mp": gnn_ops.launches,
+            "wc_oracle_trips": wc_ops.trip_launches,
+            "wc_oracle": wc_ops.launches}
+
+
+def _counted(fn) -> tuple:
+    """Run ``fn``; -> (its result, the kernel launches it made, by wrapper
+    counter)."""
+    c0 = _launch_counts()
+    out = fn()
+    return out, {k: v - c0[k] for k, v in _launch_counts().items()}
+
+
+def gate_update(what: str, kern, plain) -> None:
+    """The latest episode or update of two trainers that started from the
+    same params and generator state, kernel backends against plain: the
+    same actions (and rewards bit for bit), losses within TRAIN_LOSS_TOL
+    relative, each gradient leaf within TRAIN_GRAD_TOL of
+    max(1, max|g|), the params after the AdamW step within
+    TRAIN_PARAM_TOL."""
+    a, b = kern.last_update, plain.last_update
+    check(np.array_equal(np.asarray(torch.as_tensor(a["actions"]).cpu()),
+                         np.asarray(torch.as_tensor(b["actions"]).cpu())),
+          f"{what}: the same actions on both backends")
+    if "rewards" in a:
+        check(np.array_equal(a["rewards"], b["rewards"]),
+              f"{what}: rewards bit-identical on both backends")
+    lk, lp = float(a["loss"]), float(b["loss"])
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= TRAIN_LOSS_TOL, f"{what}: loss {lk} vs plain {lp}, "
+                                      f"relative {loss_rel}")
+    grad_err = max(float((gk - gp).abs().max())
+                   / max(1.0, float(gp.abs().max()))
+                   for gk, gp in zip(tree_leaves(a["grads"]),
+                                     tree_leaves(b["grads"])))
+    check(grad_err <= TRAIN_GRAD_TOL, f"{what}: gradient error {grad_err}")
+    param_err = max(float((pk - pp).abs().max()) for pk, pp in
+                    zip(tree_leaves(kern.params), tree_leaves(plain.params)))
+    check(param_err <= TRAIN_PARAM_TOL, f"{what}: params after the step "
+                                        f"differ by {param_err}")
+    print(f"train gate {what}: loss {lk:.7f} vs plain {lp:.7f} ("
+          f"{loss_rel:.3e} relative <= {TRAIN_LOSS_TOL}); "
+          f"gradient {grad_err:.3e} "
+          f"of max(1, max|g|) <= {TRAIN_GRAD_TOL}; params {param_err:.3e} "
+          f"<= {TRAIN_PARAM_TOL}; actions identical"
+          + ("; rewards bit-identical" if "rewards" in a else ""))
+
+
+def _copy_state(src, dst) -> None:
+    """``dst`` continues from ``src``'s params, optimizer, generator and
+    counters (its own backends)."""
+    dst.params = tree_map(torch.clone, src.params)
+    dst.opt_state = AdamState(src.opt_state.step,
+                              tree_map(torch.clone, src.opt_state.mu),
+                              tree_map(torch.clone, src.opt_state.nu))
+    dst.generator.set_state(src.generator.get_state())
+    dst.episode = src.episode
+
+
+def train_path(dev) -> dict:
+    """Stage I then Stage II of ``DopplerTrainer`` on the card at the
+    policy's published width on TRAIN_REQUEST: ``stage1_imitation``
+    (TRAIN_STAGE1 episodes, run as 1 + the rest), ``train_rl`` over the
+    trainer's default engine (the oracle, one ``wc_trips`` launch per
+    reward batch; TRAIN_UPDATES updates at K TRAIN_K, run as 1 + the
+    rest), one ``stage2_sim_batched`` update on the numpy ``WCSimulator``.
+    The first episode and the first update are gated against a twin on
+    the plain backends started from the same state.  The launch counts
+    cover the kernel trainer's calls (the twin's must be 0)."""
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+    kern = DopplerTrainer(g, fm, seed=0, device=dev)
+    plain = DopplerTrainer(g, fm, seed=0, device=dev,
+                           encoder_backend="torch", oracle_backend="torch")
+    check((kern.encoder_backend, kern.oracle_backend) == ("cuda", "cuda"),
+          "the trainer's backends default to cuda on the card")
+    engine, plain_engine = kern.default_engine(), plain.default_engine()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    counts = dict.fromkeys(_launch_counts(), 0)
+
+    def run(fn, twin=False):
+        out, delta = _counted(fn)
+        if twin:
+            check(delta == dict.fromkeys(counts, 0),
+                  f"the plain twin launches no kernel: {delta}")
+        for k, v in delta.items():
+            counts[k] += v
+        return out, delta
+
+    # Stage I
+    _, first = run(lambda: kern.stage1_imitation(1))
+    run(lambda: plain.stage1_imitation(1), twin=True)
+    gate_update("stage I episode 1", kern, plain)
+    _, rest = run(lambda: kern.stage1_imitation(TRAIN_STAGE1 - 1, seed=1))
+    s1_seconds = dict(kern.seconds)
+    per_episode = {k: v / TRAIN_STAGE1 for k, v in s1_seconds.items()}
+    check(first == {"gnn_mp_pair": 2, "gnn_mp": 0, "wc_oracle_trips": 0,
+                    "wc_oracle": 0}
+          and rest["gnn_mp_pair"] == 2 * (TRAIN_STAGE1 - 1),
+          f"stage I: one gnn_mp pair launch a GNN layer an episode "
+          f"(forward; the backward is the gather): {first}, {rest}")
+
+    # Stage II: the first update gated against the twin, from one state
+    _copy_state(kern, plain)
+    kern.seconds.clear()
+    times, upd1 = run(lambda: kern.train_rl(engine, 1, batch_size=TRAIN_K))
+    run(lambda: plain.train_rl(plain_engine, 1, batch_size=TRAIN_K),
+        twin=True)
+    gate_update("stage II update 1", kern, plain)
+    del plain
+    more_times, more = run(lambda: kern.train_rl(
+        engine, TRAIN_UPDATES - 1, batch_size=TRAIN_K))
+    s2_seconds = dict(kern.seconds)
+    per_update = {k: v / TRAIN_UPDATES for k, v in s2_seconds.items()}
+    check(upd1 == {"gnn_mp_pair": 4, "gnn_mp": 0, "wc_oracle_trips": 1,
+                   "wc_oracle": 0}
+          and more["gnn_mp_pair"] == 4 * (TRAIN_UPDATES - 1)
+          and more["wc_oracle_trips"] == TRAIN_UPDATES - 1,
+          f"stage II: 2 pair launches to sample, 2 to replay, one wc_trips "
+          f"launch an update: {upd1}, {more}")
+    # the numpy simulator as the reward engine (no oracle kernel)
+    kern.seconds.clear()
+    sim_times, sim_delta = run(lambda: kern.stage2_sim_batched(
+        1, batch_size=TRAIN_K))
+    sim_seconds = dict(kern.seconds)
+    check(sim_delta["gnn_mp_pair"] == 4
+          and sim_delta["wc_oracle_trips"] == 0,
+          f"stage2_sim_batched: {sim_delta}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ts = np.asarray(times + more_times + sim_times).reshape(-1, TRAIN_K)
+    return {"trainer": kern, "engine": engine, "counts": counts,
+            "batch_best": ts.min(1), "stage1_s": per_episode,
+            "stage2_s": per_update, "sim_s": sim_seconds,
+            "launches": {"stage1_episode": first, "stage2_update": upd1,
+                         "stage2_sim_update": sim_delta},
+            "peak_gb": peak_gb}
+
+
+def check_train_path(res) -> None:
+    tr = res["trainer"]
+    g = tr.g
+    n_upd = TRAIN_STAGE1 + TRAIN_UPDATES + 1
+    check(len(tr.losses) == n_upd and all(np.isfinite(tr.losses)),
+          f"finite losses, one an episode or update: {tr.losses}")
+    check(tr.episode == TRAIN_STAGE1 + (TRAIN_UPDATES + 1) * TRAIN_K,
+          f"episode counter {tr.episode}")
+    rows = tr.history
+    check(len(rows) == TRAIN_UPDATES + 1
+          and [h.stage for h in rows] == [res["engine"].name]
+          * TRAIN_UPDATES + ["sim_batch"], "history rows")
+    check(all(np.isfinite(h.exec_time) and h.exec_time > 0 for h in rows)
+          and tr.best_time <= min(h.exec_time for h in rows),
+          "finite makespans, best so far kept")
+    a = tr.best_assignment
+    check(a.shape == (g.n,) and bool(((a >= 0) & (a < tr.dev.n)).all()),
+          "best assignment in range")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(tr.params)),
+          "finite params")
+    cp_ms = res["engine"].exec_time(critical_path_assignment(g, tr.dev,
+                                                             seed=0))
+    gname, fleet = TRAIN_REQUEST
+    s1, s2, sim = res["stage1_s"], res["stage2_s"], res["sim_s"]
+    print(f"train {gname} x {fleet} ({CARD}): n={g.n} m={g.m} "
+          f"nd={tr.dev.n} d_hidden 64, d_z 32, d_y 32, 2 GNN layers, "
+          f"random seed-0 weights; stage I {TRAIN_STAGE1} episodes, "
+          f"stage II {TRAIN_UPDATES} updates at K={TRAIN_K} over "
+          f"{res['engine'].name}, 1 stage2_sim_batched update at "
+          f"K={TRAIN_K}; peak_memory_gb={res['peak_gb']:.3f}")
+    print(f"train stage I s per episode: total "
+          f"{sum(s1.values()):.6f} = " + " + ".join(
+              f"{k} {v:.6f}" for k, v in s1.items()))
+    print(f"train stage II s per update: total "
+          f"{sum(s2.values()):.6f} = " + " + ".join(
+              f"{k} {v:.6f}" for k, v in s2.items()))
+    print(f"train stage2_sim_batched s (numpy WCSimulator, one update): "
+          f"total {sum(sim.values()):.6f} = " + " + ".join(
+              f"{k} {v:.6f}" for k, v in sim.items()))
+    print(f"train launches: per stage I episode "
+          f"{res['launches']['stage1_episode']}, per stage II update "
+          f"{res['launches']['stage2_update']}, per stage2_sim_batched "
+          f"update {res['launches']['stage2_sim_update']}; the path "
+          f"{res['counts']}")
+    print(f"train losses {[round(x, 6) for x in tr.losses]}")
+    print("train makespan ms per update (mean / best of the batch): "
+          + ", ".join(f"{h.stage} {h.exec_time * 1e3:.6f} / "
+                      f"{b * 1e3:.6f}" for h, b in zip(
+                          rows, res["batch_best"]))
+          + f"; best so far {tr.best_time * 1e3:.6f}; CP {cp_ms * 1e3:.6f}")
+
+
+def profile_update(tr, engine, untraced_s: float) -> dict:
+    """One more Stage II update under ``torch.profiler``: device launches
+    and the device's busy share (traced and against an untraced update)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_rl(engine, 1, batch_size=TRAIN_K)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    launches = sum(r[1] for r in rows)
+    print(f"profile stage II update (K={TRAIN_K}): traced_s={traced_s:.6f} "
+          f"untraced_s={untraced_s:.6f} device_busy_s={busy_s:.6f} "
+          f"busy_share_traced={busy_s / traced_s:.6f} "
+          f"busy_share_untraced={busy_s / untraced_s:.6f} "
+          f"device_launches={launches}")
+    for us, count, key in rows[:8]:
+        print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
+    per = per_launch_ms(rows, (("gnn_mp_pair", "segment_sum_pair"),
+                               ("wc_oracle_trips", "wc_trips<")))
+    return {"device_launches": launches, "device_busy_s": busy_s,
+            "traced_s": traced_s, "device_ms_per_launch": per}
+
+
 def _profiled(fn):
     """Run ``fn`` under ``torch.profiler``; -> (traced s, device rows)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1352,6 +1598,29 @@ def main() -> int:
     device_ms["flash_attention_mma"] = gemma_ms["flash_attention_mma"]
     launches["flash_attention_mma"] = gemma_launches["flash_fwd_mma"]
     del params, res
+    torch.cuda.empty_cache()
+
+    # path 4: training, Stage I and Stage II (gnn_mp's pair under autograd,
+    # wc_oracle's wc_trips scoring every reward batch)
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    train = train_path(dev)
+    train_launches = _launch_counts()
+    check(train_launches == train["counts"],
+          f"the training path's launches: {train_launches}")
+    check_train_path(train)
+    prof = profile_update(train["trainer"], train["engine"],
+                          sum(train["stage2_s"].values()))
+    for name in ("gnn_mp_pair", "gnn_mp", "wc_oracle_trips", "wc_oracle"):
+        by_name[name]["train"] = {
+            "launches": train_launches[name],
+            "per_stage1_episode": train["launches"]["stage1_episode"][name],
+            "per_stage2_update": train["launches"]["stage2_update"][name],
+            "device_ms": prof["device_ms_per_launch"].get(name)}
+    check(train_launches["gnn_mp_pair"] > 0
+          and train_launches["wc_oracle_trips"] > 0,
+          "the training path ran the gnn_mp pair and wc_trips")
+    del train
 
     ported = {}
     for name, k in by_name.items():

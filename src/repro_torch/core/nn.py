@@ -98,14 +98,18 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of nested dicts / lists / tuples; ``None``
-    stays ``None`` (an empty slot, as in a JAX pytree)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts / lists / tuples, and over
+    the matching leaves of ``rest`` (trees of the same structure), as
+    ``jax.tree_util.tree_map``; ``None`` stays ``None`` (an empty slot,
+    as in a JAX pytree)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return None if tree is None else fn(tree)
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
 
 
 def tree_size(tree) -> int:

@@ -33,6 +33,7 @@ import torch
 from ..kernels.wc_oracle.ops import wc_trips
 from .device import resolve_device
 from .devices import DeviceModel
+from .engine import RewardEngine
 from .graph import DataflowGraph
 from .nn import first_true
 
@@ -238,9 +239,15 @@ def makespan_fifo_batch(sg: SimGraph, assignments: torch.Tensor,
     return ms, n_done == sg.n_compute
 
 
-class TorchWCEngine:
+class TorchWCEngine(RewardEngine):
     """Host-facing oracle (twin of ``JaxWCEngine``): noise-free 'fifo'
-    makespans of assignments, scored as one batch on ``device``."""
+    makespans of assignments, scored as one batch on ``device``.  As a
+    reward engine it takes the place of the reference's
+    ``JaxOracleEngine``: batched, deterministic (``episode`` does not
+    change a makespan, so repeats dedup to one run)."""
+
+    batched = True
+    deterministic = True
 
     def __init__(self, graph: DataflowGraph, devices: DeviceModel,
                  backend: str = "cuda", device: str | torch.device = "cuda"):
@@ -251,6 +258,7 @@ class TorchWCEngine:
         self.device = resolve_device(device)
         self.sim_graph = SimGraph.build(graph, devices, self.device)
         self.backend = backend
+        self.name = f"torch_oracle[{backend}]"
 
     def run_batch(self, assignments) -> np.ndarray:
         A = torch.as_tensor(np.asarray(assignments), dtype=torch.long)
@@ -262,10 +270,5 @@ class TorchWCEngine:
             raise RuntimeError("deadlock: episode never completed")
         return ms.cpu().numpy()
 
-    def exec_time(self, assignment) -> float:
-        return float(self.run_batch(np.asarray(assignment)[None, :])[0])
-
     def exec_times(self, assignments, episode: int = 0) -> np.ndarray:
-        """Reward-engine surface: one makespan per row.  The oracle is
-        noise-free, so ``episode`` does not change the result."""
         return self.run_batch(assignments)

@@ -12,6 +12,10 @@ placements of its state; the
 output's largest magnitude (both sum in fp32, in different orders);
 ``segment_sum_pair`` (both directions in one launch) likewise;
 the oracle's makespans with the kernel equal to the plain path's;
+one Stage I episode and one Stage II update of ``DopplerTrainer`` on the
+kernel backends against a twin on the plain backends (chip_smoke.py's
+training gate: same actions, rewards bit for bit, losses within 1e-5 of
+max(1, |loss|), gradients within 5e-6 of max(1, max|g|), params 5e-3);
 ``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
 and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 ``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.core.devices import get_device_model, uniform_box
 from repro_torch.core.graph import DataflowGraph
+from repro_torch.core.nn import tree_leaves
 from repro_torch.core.sim_torch import (SimGraph, makespan_fifo_batch,
                                         trip_inputs)
 from repro_torch.core.training import DopplerTrainer
@@ -268,6 +273,68 @@ def test_placement_request_on_the_card(cuda):
     assert (wc_ops.launches, wc_ops.trip_launches) == (w0, t0 + 1)
     assert pl.population.shape == (16, g.n) and np.isfinite(pl.makespans).all()
     assert pl.makespan == pl.makespans.min()
+
+
+# ------------------------------------------------------------- training
+def _train_twins(cuda, gname="ffnn", fleet="p100x4"):
+    """A trainer on the kernel backends and its twin on the plain ones, on
+    the card, with the same params and generator seed."""
+    g, fm = workloads.get_workload(gname), get_device_model(fleet)
+    kern = DopplerTrainer(g, fm, seed=0, device=cuda)
+    plain = DopplerTrainer(g, fm, seed=0, device=cuda,
+                           encoder_backend="torch", oracle_backend="torch")
+    assert (kern.encoder_backend, kern.oracle_backend) == ("cuda", "cuda")
+    return kern, plain
+
+
+def _assert_same_update(kern, plain):
+    """chip_smoke.py's training gate: the same actions (rewards bit for
+    bit), losses within 1e-5 relative, each gradient leaf within
+    5e-6 of max(1, max|g|), params after the step within 5e-3."""
+    a, b = kern.last_update, plain.last_update
+    assert np.array_equal(np.asarray(torch.as_tensor(a["actions"]).cpu()),
+                          np.asarray(torch.as_tensor(b["actions"]).cpu()))
+    if "rewards" in a:
+        assert np.array_equal(a["rewards"], b["rewards"])
+    lp = float(b["loss"])
+    assert abs(float(a["loss"]) - lp) <= 1e-5 * abs(lp)
+    for gk, gp in zip(tree_leaves(a["grads"]), tree_leaves(b["grads"])):
+        scale = max(1.0, float(gp.abs().max()))
+        assert float((gk - gp).abs().max()) <= 5e-6 * scale
+    for pk, pp in zip(tree_leaves(kern.params), tree_leaves(plain.params)):
+        assert float((pk - pp).abs().max()) <= 5e-3
+
+
+def test_stage1_episode_kernels_match_plain(cuda):
+    kern, plain = _train_twins(cuda)
+    p0 = gnn_ops.pair_launches
+    kern.stage1_imitation(1)
+    assert gnn_ops.pair_launches - p0 == 2     # the encoder's forward
+    p0 = gnn_ops.pair_launches
+    plain.stage1_imitation(1)
+    assert gnn_ops.pair_launches == p0
+    _assert_same_update(kern, plain)
+    # every leaf got a gradient through the pair's gather backward, but
+    # the two output biases a softmax ignores (0 up to rounding)
+    grads = kern.last_update["grads"]
+    shift_free = {id(grads[h]["layers"][-1]["b"])
+                  for h in ("sel_head", "plc_head2")}
+    assert all(bool((x != 0).any()) for x in tree_leaves(grads)
+               if id(x) not in shift_free)
+
+
+def test_stage2_update_kernels_match_plain(cuda):
+    kern, plain = _train_twins(cuda)
+    p0, t0 = gnn_ops.pair_launches, wc_ops.trip_launches
+    times = kern.train_rl(kern.default_engine(), 1, batch_size=8,
+                          stage="oracle")
+    assert (gnn_ops.pair_launches - p0, wc_ops.trip_launches - t0) == (4, 1)
+    p0, t0 = gnn_ops.pair_launches, wc_ops.trip_launches
+    assert plain.train_rl(plain.default_engine(), 1, batch_size=8,
+                          stage="oracle") == times
+    assert (gnn_ops.pair_launches, wc_ops.trip_launches) == (p0, t0)
+    _assert_same_update(kern, plain)
+    assert kern.history == plain.history and kern.episode == 8
 
 
 # ------------------------------------------------- flash_attention (B3)
