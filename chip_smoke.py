@@ -100,10 +100,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    seconds per episode and per update by phase, the launches per episode
    and update, the losses, the makespans per update and peak memory; then
    one more update under ``torch.profiler`` (device launches, busy share).
+8. fused training path: the same request through ``stage1_imitation_fused``
+   and ``stage2_fused`` (``core/train_fused.py``), each update one CUDA
+   graph replay: Stage I 64 episodes (the first gated against an eager
+   twin on the plain backends, from one state), Stage II 64 updates at K
+   16, 8 a dispatch (the first on injected draws, gated against the plain
+   eager fused twin and against path 7's non-fused ``train_rl`` on the
+   same draws from the same state: actions identical, rewards
+   bit-identical, advantages within 1e-6 of the rewards, gradients 5e-6
+   of max(1, max|g|), and the fused loss within 1e-4 relative of the
+   forced replay's on the same advantages);
+   one chunked dispatch (chunks of 8, gradient chunks of 4) against the
+   monolithic update from the same state (makespans bit-identical,
+   gradients 1e-6, params 5e-3); a ``SimGraph`` doctored to ``n_trips=1``
+   must raise from a captured dispatch.  The kernel launches a capture
+   records (one update's: 2 ``gnn_mp`` pair a Stage I update; 4 pair and
+   1 ``wc_trips`` a Stage II update; 10 and 2 chunked) are checked, and
+   one profiled dispatch shows the launches replayed.  Prints seconds per
+   update beside path 7's, warm-up and capture seconds, the training
+   record (batch-mean makespans of the first and last 8 updates, best,
+   CP) and peak memory.
    On each path the launch counts are reset just before it is driven and
    read just after; every Pallas kernel must have a port that launched on
    its path.
-8. prints the ``kernels`` JSON line and, last, the result line.
+9. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -114,6 +134,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -131,7 +152,8 @@ from repro_torch.core.heuristics import critical_path_assignment  # noqa: E402
 from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, trip_inputs)
-from repro_torch.core.training import DopplerTrainer  # noqa: E402
+from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
+                                       _pg_loss_and_grad_batch)
 from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
                                           list_workloads)
 from repro_torch.kernels import _build  # noqa: E402
@@ -189,6 +211,12 @@ GEMMA_BF16_SEEDS = (0, 1)
 TRAIN_REQUEST = ("llama_layer", "v100x8")
 TRAIN_STAGE1, TRAIN_UPDATES, TRAIN_K = 4, 3, 16
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 5e-6, 5e-3
+# the fused path: 64 Stage I episodes and 64 Stage II updates at K 16, 8
+# a dispatch; the fused loss against the forced replay on the same
+# advantages at the reference's bars (tests/test_train_fused.py:68), the
+# chunked gradient against the monolithic one at its parity bar (:112)
+FUSED_RECORD, FUSED_DISPATCH, FUSED_PROFILED = 64, 8, 2
+REPLAY_LOSS_TOL, CHUNK_GRAD_TOL = 1e-4, 1e-6
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -1269,13 +1297,16 @@ def _counted(fn) -> tuple:
     return out, {k: v - c0[k] for k, v in _launch_counts().items()}
 
 
-def gate_update(what: str, kern, plain) -> None:
+def gate_update(what: str, kern, plain,
+                loss_tol: float | None = TRAIN_LOSS_TOL,
+                grad_tol: float = TRAIN_GRAD_TOL,
+                param_tol: float | None = TRAIN_PARAM_TOL) -> None:
     """The latest episode or update of two trainers that started from the
     same params and generator state, kernel backends against plain: the
-    same actions (and rewards bit for bit), losses within TRAIN_LOSS_TOL
-    relative, each gradient leaf within TRAIN_GRAD_TOL of
-    max(1, max|g|), the params after the AdamW step within
-    TRAIN_PARAM_TOL."""
+    same actions (and rewards bit for bit), losses within ``loss_tol``
+    relative, each gradient leaf within ``grad_tol`` of max(1, max|g|),
+    the params after the AdamW step within ``param_tol`` (a bar of None
+    is printed, not checked)."""
     a, b = kern.last_update, plain.last_update
     check(np.array_equal(np.asarray(torch.as_tensor(a["actions"]).cpu()),
                          np.asarray(torch.as_tensor(b["actions"]).cpu())),
@@ -1285,22 +1316,26 @@ def gate_update(what: str, kern, plain) -> None:
               f"{what}: rewards bit-identical on both backends")
     lk, lp = float(a["loss"]), float(b["loss"])
     loss_rel = abs(lk - lp) / abs(lp)
-    check(loss_rel <= TRAIN_LOSS_TOL, f"{what}: loss {lk} vs plain {lp}, "
-                                      f"relative {loss_rel}")
+    check(loss_tol is None or loss_rel <= loss_tol,
+          f"{what}: loss {lk} vs {lp}, relative {loss_rel}")
     grad_err = max(float((gk - gp).abs().max())
                    / max(1.0, float(gp.abs().max()))
                    for gk, gp in zip(tree_leaves(a["grads"]),
                                      tree_leaves(b["grads"])))
-    check(grad_err <= TRAIN_GRAD_TOL, f"{what}: gradient error {grad_err}")
-    param_err = max(float((pk - pp).abs().max()) for pk, pp in
-                    zip(tree_leaves(kern.params), tree_leaves(plain.params)))
-    check(param_err <= TRAIN_PARAM_TOL, f"{what}: params after the step "
-                                        f"differ by {param_err}")
-    print(f"train gate {what}: loss {lk:.7f} vs plain {lp:.7f} ("
-          f"{loss_rel:.3e} relative <= {TRAIN_LOSS_TOL}); "
+    check(grad_err <= grad_tol, f"{what}: gradient error {grad_err}")
+    params = ""
+    if param_tol is not None:
+        param_err = max(float((pk - pp).abs().max()) for pk, pp in
+                        zip(tree_leaves(kern.params),
+                            tree_leaves(plain.params)))
+        check(param_err <= param_tol, f"{what}: params after the step "
+                                      f"differ by {param_err}")
+        params = f"; params {param_err:.3e} <= {param_tol}"
+    print(f"train gate {what}: loss {lk:.7f} vs {lp:.7f} ("
+          f"{loss_rel:.3e} relative"
+          + ("" if loss_tol is None else f" <= {loss_tol}") + "); "
           f"gradient {grad_err:.3e} "
-          f"of max(1, max|g|) <= {TRAIN_GRAD_TOL}; params {param_err:.3e} "
-          f"<= {TRAIN_PARAM_TOL}; actions identical"
+          f"of max(1, max|g|) <= {grad_tol}{params}; actions identical"
           + ("; rewards bit-identical" if "rewards" in a else ""))
 
 
@@ -1445,6 +1480,250 @@ def check_train_path(res) -> None:
                       f"{b * 1e3:.6f}" for h, b in zip(
                           rows, res["batch_best"]))
           + f"; best so far {tr.best_time * 1e3:.6f}; CP {cp_ms * 1e3:.6f}")
+
+
+# ---------------------------------------------------- fused training path
+def _draw_tables(rng, n: int, K: int, nd: int) -> list:
+    """One update's step-major draw tables (gumbel rows, uniforms) made
+    with numpy from ``rng``."""
+    def u(*shape):
+        return rng.random(shape, dtype=np.float32).clip(1e-7, 1 - 1e-7)
+
+    def gumbel(*shape):
+        return (-np.log(-np.log(u(*shape)))).astype(np.float32)
+    return [gumbel(n, K, n), gumbel(n, K, nd), u(n, K), u(n, K)]
+
+
+def gate_replay(fused, nonfused, params0, draws) -> None:
+    """The fused update against the non-fused path (path 7's ``train_rl``:
+    a forced replay under autograd) from the same state on the same
+    draws: the same actions and rewards bit for bit, advantages within
+    1e-6 of the rewards' magnitude (each path rounds its own baseline: a
+    shift ``d`` of the baseline moves the loss by ``d`` times the mean
+    summed log-prob, ~700 here, so the two trainers' losses are not
+    compared), gradients within TRAIN_GRAD_TOL; then the fused loss and
+    gradients against the forced replay's on the fused update's own
+    advantages from ``params0``, the state before it, at the reference's
+    fused-vs-replay bars (REPLAY_LOSS_TOL relative, TRAIN_GRAD_TOL)."""
+    nonfused.train_rl(nonfused.default_engine(), 1, batch_size=TRAIN_K,
+                      draws=draws)
+    gate_update("fused stage II update 1 vs non-fused train_rl", fused,
+                nonfused, loss_tol=None, param_tol=None)
+    a, b = fused.last_update, nonfused.last_update
+    adv_gap = float(np.abs(a["advantages"] - b["advantages"]).max())
+    scale = float(np.abs(a["rewards"]).max())
+    check(adv_gap <= 1e-6 * scale, f"advantages differ by {adv_gap}")
+    loss, grads = _pg_loss_and_grad_batch(
+        params0, fused.gd, a["actions"], a["advantages"],
+        fused.entropy_weight, encoder_backend=fused.encoder_backend)
+    replay = SimpleNamespace(last_update=dict(
+        actions=a["actions"], rewards=a["rewards"], loss=loss, grads=grads))
+    gate_update("fused stage II update 1 vs the forced replay on its "
+                "advantages", fused, replay, loss_tol=REPLAY_LOSS_TOL,
+                param_tol=None)
+    print(f"train gate advantages: fused vs non-fused {adv_gap:.3e} <= "
+          f"1e-6 of max|reward| {scale:.6f}")
+
+
+def _engine(tr, stage: str):
+    """``tr``'s one cached fused engine of ``stage``."""
+    (eng,) = [e for k, e in tr._fused_cache.items() if k[0] == stage]
+    return eng
+
+
+def fused_path(dev) -> dict:
+    """Stage I and Stage II through the fused engine on TRAIN_REQUEST at
+    the policy's published width, each update one CUDA graph replay:
+    FUSED_RECORD Stage I episodes (the first gated against a plain eager
+    twin), then FUSED_RECORD Stage II updates at K TRAIN_K, FUSED_DISPATCH
+    a dispatch (the first on injected draws, gated against the plain
+    eager fused twin and the non-fused ``train_rl``, all from one state);
+    a chunked dispatch against that first update; the raise of a
+    doctored oracle.  Launch counts: the wrappers count the warm-up's
+    launches and a capture's recordings; a capture's count is what every
+    replay launches."""
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+
+    def trainer(plain=False):
+        kw = dict(encoder_backend="torch", oracle_backend="torch") \
+            if plain else {}
+        return DopplerTrainer(g, fm, seed=0, device=dev, **kw)
+    kern, plain = trainer(), trainer(plain=True)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _launch_counts()
+
+    # Stage I: the first episode captured, against the plain eager twin
+    _copy_state(kern, plain)
+    before = _launch_counts()
+    kern.stage1_imitation_fused(1)
+    plain.stage1_imitation_fused(1, capture=False)
+    check(_launch_counts() == {k: v + 4 * (k == "gnn_mp_pair")
+                               for k, v in before.items()},
+          "fused stage I: the warm-up launches the gnn_mp pair twice and "
+          "the capture records it twice; the plain twin launches nothing")
+    gate_update("fused stage I episode 1", kern, plain)
+    s1_first = dict(kern.seconds)
+    kern.seconds.clear()
+    kern.stage1_imitation_fused(FUSED_RECORD - 1, seed=1)
+    s1 = {k: v / (FUSED_RECORD - 1) for k, v in kern.seconds.items()}
+    s1_captured = _engine(kern, "stage1").graphed.captured
+
+    # Stage II from the state after Stage I: the first update on injected
+    # draws, against the plain eager twin, the non-fused path and the
+    # chunked engine, each started from that state
+    rng = np.random.default_rng(0)
+    draws = [_draw_tables(rng, g.n, TRAIN_K, fm.n)]
+    nonfused, chunked = trainer(), trainer()
+    for tr in (plain, nonfused, chunked):
+        _copy_state(kern, tr)
+    params0 = tree_map(torch.clone, kern.params)
+    kern.seconds.clear()
+    kern.stage2_fused(1, batch_size=TRAIN_K,
+                      updates_per_dispatch=FUSED_DISPATCH, draws=draws)
+    s2_first = dict(kern.seconds)
+    before = _launch_counts()
+    plain.stage2_fused(1, batch_size=TRAIN_K, draws=draws, capture=False)
+    check(_launch_counts() == before, "the plain fused twin launches no "
+                                      "kernel")
+    gate_update("fused stage II update 1", kern, plain)
+    del plain
+    gate_replay(kern, nonfused, params0, draws)
+    del nonfused
+    chunked.stage2_fused(1, batch_size=TRAIN_K, chunk_size=8,
+                         grad_chunk_size=4, draws=draws)
+    gate_update("chunked (8 / 4) vs monolithic stage II update 1", chunked,
+                kern, loss_tol=None, grad_tol=CHUNK_GRAD_TOL)
+    chunk_captured = _engine(chunked, "stage2").graphed.captured
+    del chunked
+
+    # the rest of the record: fresh draws from the trainer's generator
+    kern.seconds.clear()
+    kern.stage2_fused(FUSED_RECORD - 1, batch_size=TRAIN_K,
+                      updates_per_dispatch=FUSED_DISPATCH)
+    s2 = {k: v / (FUSED_RECORD - 1) for k, v in kern.seconds.items()}
+    s2_captured = _engine(kern, "stage2").graphed.captured
+
+    # the validity flag, through a captured dispatch
+    doctored = trainer()
+    doctored._fused_cache["sim_graph"] = dataclasses.replace(
+        SimGraph.build(g, fm, dev), n_trips=1)
+    try:
+        doctored.stage2_fused(1, batch_size=TRAIN_K,
+                              updates_per_dispatch=FUSED_DISPATCH)
+        raised = ""
+    except RuntimeError as err:
+        raised = str(err)
+    check("converge" in raised and _engine(doctored, "stage2").graphed.graph
+          is not None and doctored.episode == 0,
+          f"a doctored oracle raises from a captured dispatch: {raised!r}")
+    del doctored
+    counts = {k: v - c0[k] for k, v in _launch_counts().items()}
+    return {"trainer": kern, "counts": counts, "stage1_first": s1_first,
+            "stage1_s": s1, "stage2_first": s2_first, "stage2_s": s2,
+            "captured": {"stage1": s1_captured, "stage2": s2_captured,
+                         "chunked": chunk_captured},
+            "raised": raised,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_fused_path(res, nonfused_s1: dict, nonfused_s2: dict) -> None:
+    tr, cap = res["trainer"], res["captured"]
+    g = tr.g
+    check(cap["stage1"] == {"gnn_mp_pair": 2, "wc_oracle_trips": 0}
+          and cap["stage2"] == {"gnn_mp_pair": 4, "wc_oracle_trips": 1}
+          and cap["chunked"] == {"gnn_mp_pair": 10, "wc_oracle_trips": 2},
+          f"launches a captured update: {cap}")
+    check(res["counts"]["gnn_mp_pair"] > 0
+          and res["counts"]["wc_oracle_trips"] > 0
+          and res["counts"]["gnn_mp"] == res["counts"]["wc_oracle"] == 0,
+          f"the fused path ran the gnn_mp pair and wc_trips: "
+          f"{res['counts']}")
+    n_upd = 2 * FUSED_RECORD
+    check(len(tr.losses) == n_upd and all(np.isfinite(tr.losses)),
+          "finite losses, one an update")
+    check(tr.episode == FUSED_RECORD * (1 + TRAIN_K)
+          and tr.opt_state.step == n_upd, f"episode counter {tr.episode}")
+    rows = tr.history
+    check(len(rows) == FUSED_RECORD
+          and all(h.stage == "sim_fused" for h in rows)
+          and all(np.isfinite(h.exec_time) and h.exec_time > 0
+                  for h in rows)
+          and tr.best_time <= min(h.exec_time for h in rows),
+          "history rows, finite makespans, best so far kept")
+    a = tr.best_assignment
+    check(a.shape == (g.n,) and bool(((a >= 0) & (a < tr.dev.n)).all()),
+          "best assignment in range")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(tr.params)),
+          "finite params")
+    cp_ms = tr.default_engine().exec_time(critical_path_assignment(
+        g, tr.dev, seed=0))
+    s1, s2 = res["stage1_s"], res["stage2_s"]
+    f1, f2 = res["stage1_first"], res["stage2_first"]
+    gname, fleet = TRAIN_REQUEST
+    print(f"fused {gname} x {fleet} ({CARD}): stage I {FUSED_RECORD} "
+          f"episodes, stage II {FUSED_RECORD} updates at K={TRAIN_K}, "
+          f"{FUSED_DISPATCH} a dispatch; launches a captured update "
+          f"{cap}; the path's counters (warm-ups and captures) "
+          f"{res['counts']}; peak_memory_gb={res['peak_gb']:.3f}")
+    print(f"fused stage I s per episode (over {FUSED_RECORD - 1}): "
+          + " + ".join(f"{k} {v:.6f}" for k, v in s1.items())
+          + f"; first call warmup {f1.get('warmup', 0.0):.6f} capture "
+          f"{f1.get('capture', 0.0):.6f}; non-fused (path 7) "
+          f"{sum(nonfused_s1.values()):.6f}")
+    print(f"fused stage II s per update (over {FUSED_RECORD - 1}): "
+          f"updates {s2['updates']:.6f}; first call warmup "
+          f"{f2.get('warmup', 0.0):.6f} capture {f2.get('capture', 0.0):.6f}"
+          f" updates {f2['updates']:.6f}; non-fused (path 7) "
+          f"{sum(nonfused_s2.values()):.6f}")
+    means = [h.exec_time * 1e3 for h in rows]
+    print("fused training record, batch-mean makespan ms: first 8 "
+          + ", ".join(f"{m:.6f}" for m in means[:8]) + "; last 8 "
+          + ", ".join(f"{m:.6f}" for m in means[-8:])
+          + f"; best {tr.best_time * 1e3:.6f}; CP {cp_ms * 1e3:.6f}")
+    print(f"fused stage I losses first / last: {tr.losses[0]:.6f} / "
+          f"{tr.losses[FUSED_RECORD - 1]:.6f}; stage II losses first 4 "
+          + str([round(x, 6) for x in tr.losses[FUSED_RECORD:][:4]]))
+    print(f"fused validity flag: {res['raised'][:80]}")
+
+
+def profile_fused(tr, untraced_s: float) -> dict:
+    """One more dispatch of FUSED_PROFILED Stage II updates (graph
+    replays) under ``torch.profiler``: device launches and busy share per
+    update, device ms per kernel; the kernels inside the replayed graph
+    must be the captured ones."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.stage2_fused(FUSED_PROFILED, batch_size=TRAIN_K,
+                        updates_per_dispatch=FUSED_DISPATCH)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    launches = sum(r[1] for r in rows)
+    per = FUSED_PROFILED
+    print(f"profile fused stage II dispatch ({per} updates, K={TRAIN_K}): "
+          f"traced_s={traced_s:.6f} untraced_s={untraced_s * per:.6f} "
+          f"device_busy_s={busy_s:.6f} "
+          f"busy_share_traced={busy_s / traced_s:.6f} "
+          f"busy_share_untraced={busy_s / (untraced_s * per):.6f} "
+          f"device_launches_per_update={launches / per:.1f}")
+    for us, count, key in rows[:8]:
+        print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
+    seen = {name: sum(c for _, c, key in rows if tag in key)
+            for name, tag in (("gnn_mp_pair", "segment_sum_pair"),
+                              ("wc_oracle_trips", "wc_trips<"))}
+    check(seen == {"gnn_mp_pair": 4 * per, "wc_oracle_trips": per},
+          f"the profiled replays launch the captured kernels: {seen}")
+    return {"device_launches_per_update": launches / per,
+            "device_busy_s_per_update": busy_s / per,
+            "device_ms_per_launch": per_launch_ms(
+                rows, (("gnn_mp_pair", "segment_sum_pair"),
+                       ("wc_oracle_trips", "wc_trips<")))}
 
 
 def profile_update(tr, engine, untraced_s: float) -> dict:
@@ -1620,7 +1899,26 @@ def main() -> int:
     check(train_launches["gnn_mp_pair"] > 0
           and train_launches["wc_oracle_trips"] > 0,
           "the training path ran the gnn_mp pair and wc_trips")
+    nonfused_s1, nonfused_s2 = train["stage1_s"], train["stage2_s"]
     del train
+
+    # path 5: fused training, each update one CUDA graph replay
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    t_fused = time.perf_counter()
+    fused = fused_path(dev)
+    check(_launch_counts() == fused["counts"],
+          f"the fused path's launches: {_launch_counts()}")
+    check_fused_path(fused, nonfused_s1, nonfused_s2)
+    fprof = profile_fused(fused["trainer"], fused["stage2_s"]["updates"])
+    print(f"fused path wall s (gates, record, profile): "
+          f"{time.perf_counter() - t_fused:.3f}")
+    for name in ("gnn_mp_pair", "wc_oracle_trips"):
+        by_name[name]["train_fused"] = {
+            "launches_per_stage2_update": fused["captured"]["stage2"][name],
+            "launches_per_stage1_update": fused["captured"]["stage1"][name],
+            "device_ms": fprof["device_ms_per_launch"][name]}
+    del fused
 
     ported = {}
     for name, k in by_name.items():

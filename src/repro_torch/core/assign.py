@@ -184,7 +184,7 @@ def _etf_update(gd: GraphData, v, d, ready_d, st: _State) -> None:
     st.est_end[k, v] = end
     st.device_avail[k, d] = end
     st.dev_comp[k, d] += gd.flops[v]
-    st.placed[k, v] = True
+    st.placed[k, v] = torch.ones_like(v, dtype=torch.bool)  # no host copy
     st.assigned[k, v] = d
     s = gd.succs[v]
     sm = s >= 0

@@ -194,8 +194,10 @@ def _init_episode(sg: SimGraph, av: torch.Tensor):
         torch.zeros(B, n, device=dev),
         torch.where(ready0[None, :] & (nxt_v < I32_BIG), nxt_v.float(),
                     -1.0)], dim=2)
-    # rows n..N-1: transfers; row N: trash
-    tail = torch.tensor([F_BIG, 0.0, -1.0], device=dev).expand(B, mm + 1, 3)
+    # rows n..N-1: transfers; row N: trash.  Built on the device (no host
+    # copy), so a CUDA graph can capture the set-up
+    tail = torch.stack([torch.full((), v, device=dev)
+                        for v in (F_BIG, 0.0, -1.0)]).expand(B, mm + 1, 3)
     tkn = torch.cat([tkn, tail], 1)                         # (B, N + 1, 3)
     hd0 = colidx.amin(1)                                    # (B, nd)
     tl0 = torch.where(seeded, vid[None, :, None], -1).amax(1)
@@ -205,8 +207,8 @@ def _init_episode(sg: SimGraph, av: torch.Tensor):
 
     # run[:, r] = (end, start trip, ready time, key, task, free)
     run = torch.zeros(B, R, 6, device=dev)
-    run[..., 0] = torch.inf
-    run[..., 4] = -1.0
+    run[..., 0].fill_(torch.inf)
+    run[..., 4].fill_(-1.0)
 
     need = torch.cat([sg.need0, sg.need0.new_zeros(1)]).expand(B, n + 1)
     need = need.clone()                                     # slot n = trash

@@ -15,11 +15,17 @@ Every loss is a forced replay of the episodes' actions through
 records its gather backward); where the reference ``vmap``s K
 single-episode replays, the port replays the K episodes as one batch.
 
+The fused engine (``core/train_fused.py``; ``stage2_fused``,
+``stage1_imitation_fused``) trains without the second |V|-step replay:
+the sampler records what the gradient needs, the loss is parallel over
+steps, AdamW and the reward statistics stay on the device, and on the
+card each update is one CUDA graph replay.
+
 A placement request: encode the graph once (``gnn_mp``), take the greedy
 episode and a sampled population, score them all in one oracle batch
-(``wc_oracle``), and return the best.  Not in this package yet: the fused
-engine, Stage III, checkpoints, hierarchical placement, re-placement,
-pretraining and ``FleetTrainer``.
+(``wc_oracle``), and return the best.  Not in this package yet: Stage
+III, checkpoints, hierarchical placement, re-placement, pretraining and
+``FleetTrainer``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from .graph import DataflowGraph
 from .heuristics import critical_path_assignment
 from .nn import tree_leaves, tree_map
 from .policies import init_policies
-from .sim_torch import ORACLE_BACKENDS, TorchWCEngine
+from .sim_torch import ORACLE_BACKENDS, SimGraph, TorchWCEngine
 from .simulator import WCSimulator
 
 Mark = Callable[[str], None]
@@ -172,10 +178,14 @@ class DopplerTrainer:
     ``draws``), which is how the tests replay the reference's streams.
     ``seconds`` sums the wall seconds of each training phase, each ended
     by a device sync (Stage I: teacher, replay, backward, adamw; Stage
-    II: sample, oracle, replay_backward, adamw); a caller may clear it.  ``losses`` holds the loss of every
-    Stage I episode and RL update in order, and ``last_update`` the
-    actions, loss and gradients (and, for RL, the rewards and
-    advantages) of the latest one."""
+    II: sample, oracle, replay_backward, adamw; the fused engines:
+    teacher and dynamics (Stage I), warmup and capture (the first
+    dispatch of a graph), updates); a caller may clear it.  ``losses``
+    holds the loss of every Stage I episode and RL update in order, and
+    ``last_update`` the actions, loss and gradients (and, for RL, the
+    rewards and advantages) of the latest one.  ``_fused_cache`` keeps
+    the fused engines (their graphs) by configuration, and the oracle's
+    ``SimGraph`` under "sim_graph"."""
 
     def __init__(self, graph: DataflowGraph, dev: DeviceModel, seed: int = 0,
                  d_hidden: int = 64, gnn_layers: int = 2,
@@ -232,6 +242,7 @@ class DopplerTrainer:
         self.seconds: dict[str, float] = {}
         self.losses: list[float] = []
         self.last_update: dict = {}
+        self._fused_cache: dict = {}
 
     # ------------------------------------------------------------- utils
     def _baseline(self) -> tuple[float, float]:
@@ -441,6 +452,167 @@ class DopplerTrainer:
         return self.train_rl(SimRewardEngine(sim, sim_engine=sim_engine),
                              n_updates, batch_size, stage="sim_batch",
                              log_every=log_every, draws=draws, **ablation)
+
+    # ------------------------------------------------------ fused engines
+    def _capture(self, capture: bool | None) -> bool:
+        """None: capture on the card, run eagerly on the CPU."""
+        if capture is None:
+            return self.device.type == "cuda"
+        if capture and self.device.type != "cuda":
+            raise ValueError("capture needs the trainer on a CUDA device")
+        return capture
+
+    def _fused_engine(self, key, build):
+        eng = self._fused_cache.get(key)
+        if eng is None:
+            eng = self._fused_cache[key] = build()
+        return eng
+
+    def _add_seconds(self, phases: dict, total: float) -> None:
+        """``phases`` (warm-up, capture) and the rest of ``total`` as
+        "updates"."""
+        for k, v in phases.items():
+            self.seconds[k] = self.seconds.get(k, 0.0) + v
+        self.seconds["updates"] = (self.seconds.get("updates", 0.0) + total
+                                   - sum(phases.values()))
+
+    def stage2_fused(self, n_updates: int, batch_size: int = 8,
+                     updates_per_dispatch: int | None = None,
+                     log_every: int = 0, n_devices: int | None = None,
+                     chunk_size: int | None = None,
+                     grad_chunk_size: int | None = None,
+                     draws: Sequence | None = None,
+                     capture: bool | None = None, sel_learned=None,
+                     plc_learned=None) -> list[float]:
+        """Device-resident Stage II (``train_fused.py``): sampling, the
+        oracle (the noise-free 'fifo' makespans of ``makespan_fifo_batch``,
+        called on device tensors), advantages, the gradient and AdamW in
+        one update, ``updates_per_dispatch`` updates a dispatch and one
+        wait for the device a dispatch (a remainder runs as a shorter
+        dispatch).  With ``capture`` (None: on the card) each update is
+        one CUDA graph replay, captured on the first dispatch of its
+        configuration; ``capture=False`` runs the same function eagerly.
+        ``chunk_size`` / ``grad_chunk_size`` as in
+        :class:`~.train_fused.FusedStage2Config`.  ``draws`` holds one
+        set of step-major tables per update (None: fresh draws from
+        ``generator``, four calls an update).  Raises RuntimeError if the
+        oracle flags any episode as not converged (those advantages were
+        masked in-update; the dispatch is discarded)."""
+        from .train_fused import (FusedStage2Config, RewardStats,
+                                  build_fused_stage2)
+        if draws is not None and len(draws) != n_updates:
+            raise ValueError(f"{len(draws)} draw tables for {n_updates} "
+                             f"updates")
+        capture = self._capture(capture)
+        sel_learned, plc_learned = self._learned(sel_learned, plc_learned)
+        U = updates_per_dispatch or min(n_updates, 8)
+        cfg = FusedStage2Config(
+            batch_size=batch_size, updates=U, sel_mode=self.sel_mode,
+            plc_mode=self.plc_mode, sel_learned=sel_learned,
+            plc_learned=plc_learned, normalize_adv=self.normalize_adv,
+            entropy_weight=self.entropy_weight,
+            encoder_backend=self.encoder_backend,
+            oracle_backend=self.oracle_backend, chunk_size=chunk_size,
+            grad_chunk_size=grad_chunk_size)
+        sg = self._fused_engine("sim_graph", lambda: SimGraph.build(
+            self.g, self.dev, self.device))
+        eng = self._fused_engine(
+            ("stage2", cfg.graph_key(), n_devices or 1, capture),
+            lambda: build_fused_stage2(cfg, self.gd, sg, self.lr_sched,
+                                       self.eps_sched, n_devices or 1,
+                                       capture))
+        rstats = RewardStats.make(self._r_sum, self._r_sqsum, self._r_count,
+                                  self.device)
+        times: list[float] = []
+        done = 0
+        while done < n_updates:
+            u = min(U, n_updates - done)
+            t0 = time.perf_counter()
+            out = eng(self.params, self.opt_state, rstats, self.episode,
+                      self.generator if draws is None
+                      else draws[done:done + u], updates=u)
+            sync(self.device)                 # the dispatch's one wait
+            ok, ms, best_as, losses, r_stats = (
+                out[k].cpu().numpy() if k != "rstats" else
+                [float(t) for t in out[k].tensors()]
+                for k in ("oracle_ok", "makespans", "best_assignments",
+                          "losses", "rstats"))
+            self._add_seconds(out["seconds"], time.perf_counter() - t0)
+            if not ok.all():
+                raise RuntimeError(
+                    f"WC oracle failed to converge on "
+                    f"{int((~ok).sum())}/{ok.size} episodes (deadlock); "
+                    f"their advantages were masked in-update and the "
+                    f"dispatch result was discarded")
+            self.params, self.opt_state = out["params"], out["opt_state"]
+            rstats = out["rstats"]
+            self._r_sum, self._r_sqsum = r_stats[:2]
+            self._r_count = int(r_stats[2])
+            for j in range(u):
+                ts = ms[j]
+                self.episode += batch_size
+                if ts.min() < self.best_time:
+                    self.best_time = float(ts.min())
+                    self.best_assignment = best_as[j]
+                self.history.append(EpisodeRecord(
+                    self.episode, "sim_fused", float(ts.mean()),
+                    self.best_time))
+                times.extend(ts.tolist())
+            self.losses.extend(losses.tolist())
+            self.last_update = dict(
+                actions=out["actions"], rewards=-ms[-1],
+                advantages=out["advantages"].cpu().numpy(),
+                loss=float(losses[-1]), grads=out["grads"])
+            done += u
+            if log_every:
+                print(f"[stage2f] upd {done}/{n_updates} "
+                      f"mean={ms[-1].mean()*1e3:.2f}ms "
+                      f"best={self.best_time*1e3:.2f}ms")
+        return times
+
+    def stage1_imitation_fused(self, n_episodes: int, seed: int = 0,
+                               batch_size: int = 1, log_every: int = 0,
+                               capture: bool | None = None) -> list[float]:
+        """Stage I with the teacher's episodes precomputed: the CP
+        teacher's ``n_episodes`` action sequences (seeds ``seed + i``),
+        their parameter-free dynamics replayed once, then one
+        step-parallel NLL update per ``batch_size`` episodes with AdamW on
+        the device, each update one CUDA graph replay with ``capture``
+        (None: on the card), and one wait at the end.  At ``batch_size=1``
+        the updates are ``stage1_imitation``'s to float tolerance."""
+        from .train_fused import build_fused_stage1
+        if n_episodes % batch_size:
+            raise ValueError("n_episodes must be divisible by batch_size")
+        capture = self._capture(capture)
+        t0 = time.perf_counter()
+        acts = np.stack([
+            critical_path_assignment(self.g, self.dev, seed=seed + i,
+                                     return_actions=True)[1]
+            for i in range(n_episodes)])
+        t1 = time.perf_counter()
+        eng = self._fused_engine(
+            ("stage1", batch_size, self.encoder_backend, capture),
+            lambda: build_fused_stage1(self.gd, self.lr_sched, batch_size,
+                                       self.encoder_backend, capture))
+        actions = torch.as_tensor(acts, dtype=torch.long, device=self.device)
+        masks, x_devs = eng.replay_dynamics(actions)
+        sync(self.device)
+        t2 = time.perf_counter()
+        out = eng(self.params, self.opt_state, self.episode, masks, x_devs,
+                  actions)
+        losses = out["losses"].cpu().tolist()          # the one wait
+        self.seconds["teacher"] = self.seconds.get("teacher", 0.0) + t1 - t0
+        self.seconds["dynamics"] = (self.seconds.get("dynamics", 0.0)
+                                    + t2 - t1)
+        self._add_seconds(out["seconds"], time.perf_counter() - t2)
+        self.params, self.opt_state = out["params"], out["opt_state"]
+        self.episode += n_episodes
+        self.losses.extend(losses)
+        self.last_update = dict(actions=acts[n_episodes - batch_size:],
+                                loss=losses[-1], grads=out["grads"])
+        if log_every:
+            print(f"[stage1f] {len(losses)} updates nll={losses[-1]:.4f}")
+        return losses
 
     # ----------------------------------------------------------- placement
     def place(self, engine=None, n_samples: int = 0, eps: float = 0.2,

@@ -8,6 +8,12 @@ parameters are float32 tensors, the bias corrections are
 ``1 - b ** step`` with ``step`` as float32, and the schedules return
 float32 scalars (an eps of 0.2 in float64 against 0.2f flips a uniform
 draw that falls between the two).
+
+The fused engines (``core/train_fused.py``) replay one update as a CUDA
+graph, so nothing there may be read back to the host or baked in at
+capture: ``adamw_update_`` keeps the step as an int32 device tensor and
+takes the lr as a float32 device tensor, and a schedule called with a
+tensor computes on the device.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from ..core.nn import tree_leaves, tree_map
 
 
 class AdamState(NamedTuple):
-    step: int          # updates taken so far (the reference's int32 scalar)
+    step: int          # updates taken so far (the reference's int32 scalar;
+                       # an int32 device tensor for ``adamw_update_``)
     mu: dict
     nu: dict
 
@@ -66,8 +73,50 @@ def adamw_update(grads, state: AdamState, params, lr,
     return tree_map(upd, params, mu, nu), AdamState(step, mu, nu)
 
 
+@torch.no_grad()
+def adamw_update_(grads, state: AdamState, params, lr: torch.Tensor,
+                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  weight_decay: float = 0.0,
+                  max_grad_norm: float | None = 1.0) -> None:
+    """:func:`adamw_update` in place, with nothing read back to the host:
+    ``params``, ``state.mu`` and ``state.nu`` are updated in place,
+    ``state.step`` is an int32 device tensor incremented in place, ``lr``
+    a float32 device tensor, and the bias corrections ``1 - b ** step``
+    are computed on the device, as the reference's traced ``adamw_update``
+    does.  The arithmetic is :func:`adamw_update`'s, operation for
+    operation."""
+    if max_grad_norm is not None:
+        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    state.step.add_(1)
+    t = state.step.float()
+    bc1 = 1 - b1 ** t
+    bc2 = 1 - b2 ** t
+    for p, m, v, g in zip(tree_leaves(params), tree_leaves(state.mu),
+                          tree_leaves(state.nu), tree_leaves(grads)):
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        p.sub_(lr * (m / bc1 / (torch.sqrt(v / bc2) + eps)
+                     + weight_decay * p))
+
+
 def linear_schedule(lr0: float, lr1: float, n_steps: int) -> Callable:
-    def sched(step) -> np.float32:
+    """``step`` -> float32 value.  A host ``step`` divides in float64 and
+    casts, as the reference's schedule does on a Python int.  A tensor
+    ``step`` (the fused engines' int32 episode counter) computes on its
+    device what XLA compiles the reference's schedule to under ``jit``:
+    the count cast to float32 times the float32 reciprocal of
+    ``max(n_steps, 1)``, clipped to [0, 1], then ``lr0 + (lr1 - lr0) *
+    frac`` as one fused multiply-add (the product exact in float64, the
+    sum rounded to float32).  The two can differ in the last bit, and eps
+    is compared with a uniform draw, so each path keeps the reference's
+    bits."""
+    inv = float(np.float32(1.0 / max(n_steps, 1)))
+    a, d = float(np.float32(lr0)), float(np.float32(lr1 - lr0))
+
+    def sched(step):
+        if isinstance(step, torch.Tensor):
+            frac = torch.clamp(step.float() * inv, 0.0, 1.0)
+            return (frac.double() * d + a).float()
         frac = np.float32(np.clip(step / max(n_steps, 1), 0.0, 1.0))
         return np.float32(lr0) + np.float32(lr1 - lr0) * frac
     return sched

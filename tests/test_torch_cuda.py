@@ -16,6 +16,9 @@ one Stage I episode and one Stage II update of ``DopplerTrainer`` on the
 kernel backends against a twin on the plain backends (chip_smoke.py's
 training gate: same actions, rewards bit for bit, losses within 1e-5 of
 max(1, |loss|), gradients within 5e-6 of max(1, max|g|), params 5e-3);
+the fused engine's captured updates (CUDA graph replays) against the same
+function run eagerly on the kernel and on the plain backends, at that
+gate with makespans bit-identical, and its raise under capture;
 ``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
 and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 ``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
@@ -335,6 +338,79 @@ def test_stage2_update_kernels_match_plain(cuda):
     assert (gnn_ops.pair_launches, wc_ops.trip_launches) == (p0, t0)
     _assert_same_update(kern, plain)
     assert kern.history == plain.history and kern.episode == 8
+
+
+# ----------------------------------------------- fused training (graphs)
+def _tables(seed, n, K, nd):
+    """One update's step-major draw tables, from numpy."""
+    rng = np.random.default_rng(seed)
+    u = [rng.random(s, dtype=np.float32).clip(1e-7, 1 - 1e-7)
+         for s in ((n, K, n), (n, K, nd), (n, K), (n, K))]
+    return [(-np.log(-np.log(x))).astype(np.float32) for x in u[:2]] + u[2:]
+
+
+def _fused_engine(tr, stage):
+    (eng,) = [e for k, e in tr._fused_cache.items() if k[0] == stage]
+    return eng
+
+
+def test_fused_stage2_captured_matches_eager_and_plain(cuda):
+    """Two captured dispatches (3 updates, then a tail of 1) against the
+    same function run eagerly on the kernel backends and on the plain
+    ones, from one state on the same draws: makespans bit-identical, the
+    last update at chip_smoke.py's training gate; the capture recorded 4
+    gnn_mp pair launches and 1 wc_trips launch, and replays them."""
+    kern, plain = _train_twins(cuda)
+    eager, _ = _train_twins(cuda)
+    draws = [_tables(i, kern.g.n, 8, kern.dev.n) for i in range(4)]
+    runs = [tr.stage2_fused(4, batch_size=8, updates_per_dispatch=3,
+                            draws=draws, capture=cap)
+            for tr, cap in ((kern, None), (eager, False), (plain, False))]
+    assert runs[0] == runs[1] == runs[2]
+    eng = _fused_engine(kern, "stage2")
+    assert eng.graphed.graph is not None and eng.graphed.replays == 4
+    assert eng.graphed.captured == {"gnn_mp_pair": 4, "wc_oracle_trips": 1}
+    assert set(kern.seconds) == {"warmup", "capture", "updates"}
+    assert _fused_engine(eager, "stage2").graphed.graph is None
+    for other in (eager, plain):
+        _assert_same_update(kern, other)
+        assert kern.history == other.history
+        assert (kern._r_sum, kern._r_count) == (other._r_sum,
+                                                other._r_count)
+    # a later call replays the same graph, on fresh generator draws
+    p0 = gnn_ops.pair_launches
+    kern.stage2_fused(2, batch_size=8, updates_per_dispatch=3)
+    assert gnn_ops.pair_launches == p0 and eng.graphed.replays == 6
+
+
+def test_fused_stage1_captured_matches_eager(cuda):
+    kern, plain = _train_twins(cuda)
+    got = kern.stage1_imitation_fused(4, seed=2, batch_size=2)
+    assert plain.stage1_imitation_fused(4, seed=2, batch_size=2,
+                                        capture=False) == pytest.approx(
+        got, rel=1e-5)
+    assert _fused_engine(kern, "stage1").graphed.captured == {
+        "gnn_mp_pair": 2, "wc_oracle_trips": 0}
+    _assert_same_update(kern, plain)
+
+
+def test_fused_stage2_raises_under_capture(cuda):
+    """A SimGraph doctored to n_trips=1: the captured dispatch flags every
+    episode and raises; the trainer keeps its state."""
+    kern, _ = _train_twins(cuda)
+    kern._fused_cache["sim_graph"] = dataclasses.replace(
+        SimGraph.build(kern.g, kern.dev, cuda), n_trips=1)
+    params = kern.params
+    with pytest.raises(RuntimeError, match="converge"):
+        kern.stage2_fused(2, batch_size=4, updates_per_dispatch=2)
+    assert _fused_engine(kern, "stage2").graphed.graph is not None
+    assert kern.params is params and kern.episode == 0
+
+
+def test_fused_capture_needs_the_kernel_oracle(cuda):
+    _, plain = _train_twins(cuda)
+    with pytest.raises(ValueError, match="oracle_backend"):
+        plain.stage2_fused(1, batch_size=4)
 
 
 # ------------------------------------------------- flash_attention (B3)
