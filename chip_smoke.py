@@ -120,10 +120,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    update beside path 7's, warm-up and capture seconds, the training
    record (batch-mean makespans of the first and last 8 updates, best,
    CP) and peak memory.
+9. Stage III path (the paper's full pipeline on the card), on the same
+   request: the work-conserving executor (``core/executor.py``) at
+   ``flops_scale = bytes_scale = 1`` with 8 logical devices, each its own
+   CUDA stream on the one card.  Gates: an untimed debug replay under the
+   CRITICAL-PATH and a round-robin assignment has every edge p -> v in
+   dependency order on the card's clock (``end_p.elapsed_time(start_v)
+   >= 0``), its steps on the executor's 8 streams, and every output
+   constant and within 1e-4 relative of its closed form (float64, by
+   walking the plan); two independent chains of 16 fp32 products at side
+   1,024 take at most 0.9 of their one-stream device span on two
+   streams, each stream first held 10 ms by a sleep kernel while the
+   host enqueues (the spans without the head start printed beside it).
+   Then ``calibrate_fleet(v100x8, executor_measure(8, repeats=3))`` (the
+   fitted overheads, rates, link bandwidths, residuals and seconds), and
+   on the calibrated fleet ``stage1_imitation_fused`` (16 episodes),
+   ``stage2_fused`` (16 updates at K 16, 8 a dispatch: a new capture),
+   ``stage3_system_batched`` (4 updates at K 8, 3 repeats, over
+   ``ExecutorRewardEngine``) and one serial ``stage3_system`` episode.
+   The first Stage III update is gated against a plain-backend twin from
+   the same state and draws whose reward engine replays the measured
+   times: actions identical, losses 1e-5 relative, gradients 5e-6 of
+   max(1, max|g|) over the whole gradient, params 5e-3.  Prints seconds
+   an update by phase, the executor-measured record (median of 5 runs
+   each of CP, greedy and the best Stage III assignment: wall ms, host
+   dispatch ms and the calibrated twin's ms), peak memory, and one
+   profiled ``execute_batch`` (device launches, streams, busy share).
+   The ``gnn_mp`` pair and ``wc_trips`` must launch on this path.
    On each path the launch counts are reset just before it is driven and
    read just after; every Pallas kernel must have a port that launched on
    its path.
-9. prints the ``kernels`` JSON line and, last, the result line.
+10. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -144,11 +171,17 @@ import torch  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.assign import build_graph_data, encode  # noqa: E402
+from repro_torch.core.calibrate import (calibrate_fleet,  # noqa: E402
+                                        executor_measure)
 from repro_torch.core.device import sync  # noqa: E402
 from repro_torch.core.devices import (PRESETS,  # noqa: E402
                                       get_device_model, uniform_box)
 from repro_torch.core.graph import DataflowGraph  # noqa: E402
-from repro_torch.core.heuristics import critical_path_assignment  # noqa: E402
+from repro_torch.core.engine import (CallableEngine,  # noqa: E402
+                                     ExecutorRewardEngine)
+from repro_torch.core.executor import WCExecutor  # noqa: E402
+from repro_torch.core.heuristics import (  # noqa: E402
+    critical_path_assignment, round_robin_assignment)
 from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, trip_inputs)
@@ -217,6 +250,28 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 5e-6, 5e-3
 # chunked gradient against the monolithic one at its parity bar (:112)
 FUSED_RECORD, FUSED_DISPATCH, FUSED_PROFILED = 64, 8, 2
 REPLAY_LOSS_TOL, CHUNK_GRAD_TOL = 1e-4, 1e-6
+# the Stage III path on TRAIN_REQUEST: the executor at flops_scale =
+# bytes_scale = 1 (one CUDA stream a logical device), its outputs within
+# EXEC_VALUE_TOL of their closed form; two independent chains of
+# OVERLAP_CHAIN fp32 matmuls at side OVERLAP_SIDE (64 output tiles of a
+# 128 x 128 tiling against 132 SMs) must take at most OVERLAP_BAR of
+# their device span on one stream when they run on two.  The spans are
+# read with each stream first held OVERLAP_HOLD_S by a sleep kernel
+# while the host enqueues the run: the executor's host dispatch (~35-60
+# us a step) is as long as a step's device time, so without the head
+# start the span is the host's (printed beside it, not gated; PERF.md).
+# Then calibration, Stage I and II (fused) on the calibrated fleet and
+# Stage III against measured wall-clock, the first update gated at path
+# 7's bars with the gradient scaled by the whole gradient's max (as
+# tests/test_torch_train.py's assert_grads_close): a scalar logit bias
+# the softmax ignores carries ~1e-5 of rounding when every advantage is
+# ~-28
+STAGE3_S1, STAGE3_S2, STAGE3_K, STAGE3_UPDATES, STAGE3_REPEATS = \
+    16, 16, 8, 4, 3
+EXEC_VALUE_TOL = 1e-4
+OVERLAP_SIDE, OVERLAP_CHAIN, OVERLAP_BAR = 1024, 16, 0.9
+OVERLAP_REPS, OVERLAP_HOLD_S = 5, 10e-3
+RECORD_RUNS = 5
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -1300,13 +1355,15 @@ def _counted(fn) -> tuple:
 def gate_update(what: str, kern, plain,
                 loss_tol: float | None = TRAIN_LOSS_TOL,
                 grad_tol: float = TRAIN_GRAD_TOL,
-                param_tol: float | None = TRAIN_PARAM_TOL) -> None:
+                param_tol: float | None = TRAIN_PARAM_TOL,
+                tree_scale: bool = False) -> None:
     """The latest episode or update of two trainers that started from the
     same params and generator state, kernel backends against plain: the
     same actions (and rewards bit for bit), losses within ``loss_tol``
-    relative, each gradient leaf within ``grad_tol`` of max(1, max|g|),
-    the params after the AdamW step within ``param_tol`` (a bar of None
-    is printed, not checked)."""
+    relative, each gradient leaf within ``grad_tol`` of max(1, max|g|)
+    (|g| of the leaf, or with ``tree_scale`` of the whole gradient; the
+    other reading is printed), the params after the AdamW step within
+    ``param_tol`` (a bar of None is printed, not checked)."""
     a, b = kern.last_update, plain.last_update
     check(np.array_equal(np.asarray(torch.as_tensor(a["actions"]).cpu()),
                          np.asarray(torch.as_tensor(b["actions"]).cpu())),
@@ -1318,10 +1375,12 @@ def gate_update(what: str, kern, plain,
     loss_rel = abs(lk - lp) / abs(lp)
     check(loss_tol is None or loss_rel <= loss_tol,
           f"{what}: loss {lk} vs {lp}, relative {loss_rel}")
-    grad_err = max(float((gk - gp).abs().max())
-                   / max(1.0, float(gp.abs().max()))
-                   for gk, gp in zip(tree_leaves(a["grads"]),
-                                     tree_leaves(b["grads"])))
+    pairs = list(zip(tree_leaves(a["grads"]), tree_leaves(b["grads"])))
+    tree = max(1.0, max(float(gp.abs().max()) for _, gp in pairs))
+    by_leaf = max(float((gk - gp).abs().max())
+                  / max(1.0, float(gp.abs().max())) for gk, gp in pairs)
+    by_tree = max(float((gk - gp).abs().max()) for gk, gp in pairs) / tree
+    grad_err = by_tree if tree_scale else by_leaf
     check(grad_err <= grad_tol, f"{what}: gradient error {grad_err}")
     params = ""
     if param_tol is not None:
@@ -1334,20 +1393,26 @@ def gate_update(what: str, kern, plain,
     print(f"train gate {what}: loss {lk:.7f} vs {lp:.7f} ("
           f"{loss_rel:.3e} relative"
           + ("" if loss_tol is None else f" <= {loss_tol}") + "); "
-          f"gradient {grad_err:.3e} "
-          f"of max(1, max|g|) <= {grad_tol}{params}; actions identical"
+          f"gradient {grad_err:.3e} of max(1, max|g|"
+          + (" over the gradient" if tree_scale else " of the leaf")
+          + f") <= {grad_tol} ("
+          + (f"of the leaf {by_leaf:.3e}" if tree_scale
+             else f"over the gradient {by_tree:.3e}")
+          + f"){params}; actions identical"
           + ("; rewards bit-identical" if "rewards" in a else ""))
 
 
 def _copy_state(src, dst) -> None:
-    """``dst`` continues from ``src``'s params, optimizer, generator and
-    counters (its own backends)."""
+    """``dst`` continues from ``src``'s params, optimizer, generator,
+    counters and reward statistics (its own backends)."""
     dst.params = tree_map(torch.clone, src.params)
     dst.opt_state = AdamState(src.opt_state.step,
                               tree_map(torch.clone, src.opt_state.mu),
                               tree_map(torch.clone, src.opt_state.nu))
     dst.generator.set_state(src.generator.get_state())
     dst.episode = src.episode
+    dst._r_sum, dst._r_sqsum, dst._r_count = \
+        src._r_sum, src._r_sqsum, src._r_count
 
 
 def train_path(dev) -> dict:
@@ -1811,6 +1876,307 @@ def profile_serve(params, cfg, prompt, res, expect: dict) -> dict:
               + " + ".join(f"{n} {t:.5f}" for n, t in by_kernel.items()))
     return {k: t for k, t in per.items() if t is not None}, by_kernel
 
+# ------------------------------------------------------- Stage III path
+def closed_form(ex, plan) -> dict:
+    """Every result of one run of ``plan``, in float64 on the host, by
+    walking the plan: inputs 0, a transfer copies, a step's seed is the
+    sum of its predecessors' values, and with base = 1/s the payload
+    gives r[0, 0] = s * (1/s + seed * 1e-6)^2, times 1e-9."""
+    vals = dict.fromkeys(ex._input_results, 0.0)
+    for v, d, xfers, pred_keys, _, base in plan.steps:
+        for p, src in xfers:
+            vals[(p, d)] = vals[(p, src)]
+        seed = sum(vals[pk] for pk in pred_keys)
+        s = base.shape[0]
+        vals[(v, d)] = s * (1.0 / s + seed * 1e-6) ** 2 * 1e-9
+    return vals
+
+
+def check_exec_run(ex, assignment, what: str) -> dict:
+    """One untimed debug replay of ``assignment``: every edge p -> v with
+    p computed has end_p <= start_v on the card's clock (timing events
+    after the step's waits and after its output); every output constant
+    along its length and within EXEC_VALUE_TOL relative of its closed
+    form; -> the streams the steps ran on and the worst readings."""
+    plan = ex.compile_plan(assignment)
+    trace = ex.trace_run(assignment)
+    at = {v: (sid, start, end) for v, _, sid, start, end in trace["steps"]}
+    g = ex.g
+    gaps = [at[p][2].elapsed_time(at[v][1]) for p, v in g.edges
+            if p in at]
+    check(min(gaps) >= 0.0, f"{what}: a step started before its producer "
+                            f"ended ({min(gaps)} ms)")
+    want = closed_form(ex, plan)
+    keys = sorted(trace["results"])
+    got = torch.stack([torch.stack([trace["results"][k].amin(),
+                                    trace["results"][k].amax()])
+                       for k in keys]).double().cpu().numpy()
+    check(np.array_equal(got[:, 0], got[:, 1]),
+          f"{what}: every output constant along its length")
+    ref = np.array([want[k] for k in keys])
+    nz = ref != 0
+    check(np.array_equal(got[~nz, 0], ref[~nz]), f"{what}: inputs are 0")
+    rel = float(np.max(np.abs(got[nz, 0] - ref[nz]) / np.abs(ref[nz])))
+    check(rel <= EXEC_VALUE_TOL, f"{what}: outputs {rel} from their "
+                                 f"closed form")
+    streams = {sid for sid, _, _ in at.values()}
+    return {"streams": streams, "min_gap_ms": min(gaps), "value_rel": rel,
+            "results": len(keys), "transfers": plan.n_transfers,
+            "edges": len(gaps)}
+
+
+def chains_graph(side: int, length: int) -> DataflowGraph:
+    """One input feeding two independent chains of ``length`` matmuls at
+    side ``side`` (vertices 1..length, then length+1..2 length)."""
+    g = DataflowGraph(f"two_chains_{side}")
+    x = g.add_vertex("input", out_bytes=4.0)
+    for _ in range(2):
+        prev = x
+        for i in range(length):
+            v = g.add_vertex("matmul", flops=2.0 * side ** 3, out_bytes=4.0,
+                             meta_op=i)
+            g.add_edge(prev, v)
+            prev = v
+    return g.freeze()
+
+
+def device_span_ms(trace) -> float:
+    """First step start to last step end of a debug replay, device ms."""
+    ref = trace["steps"][0][3]
+    starts = [ref.elapsed_time(st) for *_, st, _ in trace["steps"]]
+    ends = [ref.elapsed_time(en) for *_, en in trace["steps"]]
+    return max(ends) - min(starts)
+
+
+def held_trace(ex, assignment, n_streams: int) -> dict:
+    """``ex.trace_run`` with its first ``n_streams`` streams each held
+    OVERLAP_HOLD_S by a sleep kernel (0: no head start)."""
+    ex.compile_plan(assignment)
+    cycles = int(torch.cuda.get_device_properties(0).clock_rate * 1e3
+                 * OVERLAP_HOLD_S)
+    for s in ex.streams[:n_streams]:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(cycles)
+    return ex.trace_run(assignment)
+
+
+def check_overlap() -> dict:
+    """The two chains on logical devices {0, 1} (two streams) against all
+    on device 0, OVERLAP_REPS debug replays of each in turns, with and
+    without the head start: the median device span with the head start
+    on two streams must be at most OVERLAP_BAR of that on one."""
+    two = np.array([0] + [0] * OVERLAP_CHAIN + [1] * OVERLAP_CHAIN)
+    one = np.zeros(1 + 2 * OVERLAP_CHAIN, np.int64)
+    ex = WCExecutor(chains_graph(OVERLAP_SIDE, OVERLAP_CHAIN), n_virtual=2)
+    res = {}
+    for held in (True, False):
+        spans = {"two": [], "one": []}
+        for r in range(OVERLAP_REPS):
+            for name in (("two", "one") if r % 2 else ("one", "two")):
+                a, n = (two, 2) if name == "two" else (one, 1)
+                spans[name].append(device_span_ms(
+                    held_trace(ex, a, n if held else 0)))
+        med = {k: float(np.median(v)) for k, v in spans.items()}
+        res["held" if held else "not_held"] = {
+            "ratio": med["two"] / med["one"], **med}
+    h, u = res["held"], res["not_held"]
+    print(f"stage3 overlap: 2 x {OVERLAP_CHAIN} fp32 matmuls at side "
+          f"{OVERLAP_SIDE}, device span ms median of {OVERLAP_REPS}, with "
+          f"a {OVERLAP_HOLD_S * 1e3:g} ms head start: two streams "
+          f"{h['two']:.6f}, one {h['one']:.6f}, ratio {h['ratio']:.6f} <= "
+          f"{OVERLAP_BAR}; without (not gated): two {u['two']:.6f}, one "
+          f"{u['one']:.6f}, ratio {u['ratio']:.6f}")
+    check(h["ratio"] <= OVERLAP_BAR,
+          f"two streams overlap: span ratio {h['ratio']}")
+    return res
+
+
+def profile_exec(ex, assignment) -> dict:
+    """One ``execute_batch`` of one run under ``torch.profiler``: device
+    launches (kernels and copies), the streams they ran on, and the
+    device's busy share (the union of their intervals over the traced
+    wall time) beside their summed time over it (> 1 where streams
+    overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    ex.compile_plan(assignment)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.execute_batch(assignment[None], repeats=1)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    evs = sorted((e.time_range.start, e.time_range.end,
+                  e.device_resource_id) for e in prof.events()
+                 if str(e.device_type).endswith("CUDA"))
+    union, end = 0.0, -np.inf
+    for a, b, _ in evs:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    total = sum(b - a for a, b, _ in evs)
+    out = {"launches": len(evs), "streams": len({e[2] for e in evs}),
+           "busy_share": union * 1e-6 / traced_s,
+           "summed_share": total * 1e-6 / traced_s, "traced_s": traced_s}
+    print(f"profile stage3 execute (CP, one run): traced_s={traced_s:.6f} "
+          f"device_launches={out['launches']} streams={out['streams']} "
+          f"busy_share={out['busy_share']:.6f} "
+          f"summed_kernel_share={out['summed_share']:.6f}")
+    return out
+
+
+def stage3_path(dev) -> dict:
+    """Stage III on the card on TRAIN_REQUEST: the executor's gates, the
+    two-stream overlap, the calibration of the fleet on the executor,
+    Stage I and II (fused) on the calibrated twin, then Stage III
+    against the executor's measured wall-clock, the first update gated
+    against a plain-backend twin that replays its measurements."""
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    ex = WCExecutor(g, n_virtual=fm.n)      # flops_scale = bytes_scale = 1
+    cp = critical_path_assignment(g, fm, seed=0)
+    default_id = torch.cuda.default_stream().stream_id
+    own = {s.stream_id for s in ex.streams}
+    check(len(own) == fm.n and default_id not in own,
+          f"one non-default stream a logical device: {own}")
+    runs = {}
+    for what, a in (("CP", cp), ("round-robin",
+                                 round_robin_assignment(g, fm.n))):
+        runs[what] = r = check_exec_run(ex, a, what)
+        print(f"stage3 executor {what}: {r['edges']} edges in dependency "
+              f"order (min end->start {r['min_gap_ms']:.6f} ms), "
+              f"{r['results']} results within {r['value_rel']:.3e} <= "
+              f"{EXEC_VALUE_TOL} of their closed form, {r['transfers']} "
+              f"transfers, steps on {len(r['streams'])} streams")
+    check(runs["round-robin"]["streams"] == own,
+          "the round-robin run's steps land on the executor's "
+          f"{fm.n} streams")
+    check_overlap()
+
+    t0 = time.perf_counter()
+    cal = calibrate_fleet(fm, executor_measure(fm.n,
+                                               repeats=STAGE3_REPEATS))
+    cal_s = time.perf_counter() - t0
+    off = ~np.eye(fm.n, dtype=bool)
+    print(f"stage3 calibration of {fleet} on the executor ({CARD}): "
+          f"{cal_s:.3f} s, {cal.n_measurements} probe measurements; "
+          f"overhead us {np.round(cal.exec_overhead * 1e6, 3).tolist()}; "
+          f"rate TFLOP/s {np.round(cal.flops_per_sec / 1e12, 3).tolist()}"
+          f"; link GB/s {cal.link_bw[off].min() / 1e9:.3f} - "
+          f"{cal.link_bw[off].max() / 1e9:.3f}; residuals "
+          + ", ".join(f"{k} {v:.6f}" for k, v in cal.residuals.items()))
+    check(np.isfinite(cal.exec_overhead).all()
+          and (cal.exec_overhead >= 0).all()
+          and np.isfinite(cal.flops_per_sec).all()
+          and {"device", "link", "overall"} <= set(cal.residuals),
+          "a finite calibrated fleet")
+
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    kern = DopplerTrainer(g, cal.fleet, seed=0, device=dev)
+    kern.stage1_imitation_fused(STAGE3_S1)
+    kern.stage2_fused(STAGE3_S2, batch_size=TRAIN_K,
+                      updates_per_dispatch=FUSED_DISPATCH)
+    twin_s = dict(kern.seconds)
+    engine = ExecutorRewardEngine(ex)
+    plain = DopplerTrainer(g, cal.fleet, seed=0, device=dev,
+                           encoder_backend="torch", oracle_backend="torch")
+    _copy_state(kern, plain)
+    draws = [_draw_tables(np.random.default_rng(1), g.n, STAGE3_K, fm.n)]
+    # Stage III's best is by measured wall-clock, which the twin's
+    # makespans from Stage II do not compare with
+    kern.best_time, kern.best_assignment = np.inf, None
+    kern.seconds.clear()
+    kern.stage3_system_batched(1, engine, batch_size=STAGE3_K,
+                               repeats=STAGE3_REPEATS, draws=draws)
+    measured = -np.asarray(kern.last_update["rewards"])
+    before = _launch_counts()
+    plain.stage3_system_batched(
+        1, CallableEngine(lambda A: measured, batched=True),
+        batch_size=STAGE3_K, draws=draws)
+    check(_launch_counts() == before, "the plain twin launches no kernel")
+    gate_update("stage III update 1 (twin replays the measured times)",
+                kern, plain, tree_scale=True)
+    del plain
+    kern.stage3_system_batched(STAGE3_UPDATES - 1, engine,
+                               batch_size=STAGE3_K, repeats=STAGE3_REPEATS)
+    s3 = {k: v / STAGE3_UPDATES for k, v in kern.seconds.items()}
+    kern.seconds.clear()
+    kern.stage3_system(1, ex.execute)
+    serial_s = dict(kern.seconds)
+
+    # the record: CP, greedy and the best Stage III assignment, measured
+    # RECORD_RUNS times each in turns
+    cands = {"CP": cp, "greedy": kern.greedy_assignment(),
+             "best stage III": kern.best_assignment}
+    wall = {k: [] for k in cands}
+    host = {k: [] for k in cands}
+    for _ in range(RECORD_RUNS):
+        for k, a in cands.items():
+            wall[k].append(ex.execute(a))
+            host[k].append(ex.last_dispatch_s)
+    twin = TorchWCEngine(g, cal.fleet, device=dev)
+    record = {k: (float(np.median(wall[k])), float(np.median(host[k])),
+                  float(twin.exec_time(a))) for k, a in cands.items()}
+    profile_exec(ex, cp)
+    return {"trainer": kern, "counts": _launch_counts(), "twin_s": twin_s,
+            "stage3_s": s3, "serial_s": serial_s, "record": record,
+            "calibration_s": cal_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "path_s": time.perf_counter() - t_path}
+
+
+def check_stage3_path(res) -> None:
+    tr = res["trainer"]
+    g = tr.g
+    check(res["counts"]["gnn_mp_pair"] > 0
+          and res["counts"]["wc_oracle_trips"] > 0,
+          f"the Stage III path ran the gnn_mp pair and wc_trips: "
+          f"{res['counts']}")
+    n_upd = STAGE3_S1 + STAGE3_S2 + STAGE3_UPDATES + 1
+    check(len(tr.losses) == n_upd and all(np.isfinite(tr.losses)),
+          f"finite losses, one an update: {len(tr.losses)}")
+    rows = tr.history
+    check([h.stage for h in rows] == ["sim_fused"] * STAGE3_S2
+          + ["sys_batch"] * STAGE3_UPDATES + ["sys"],
+          f"history rows {[h.stage for h in rows]}")
+    check(all(np.isfinite(h.exec_time) and h.exec_time > 0 for h in rows)
+          and tr.best_time == min(h.best_so_far for h in rows[STAGE3_S2:]),
+          "finite positive makespans and measurements, Stage III's best "
+          "kept")
+    a = tr.best_assignment
+    check(a.shape == (g.n,) and bool(((a >= 0) & (a < tr.dev.n)).all()),
+          "best assignment in range")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(tr.params)),
+          "finite params")
+    gname, fleet = TRAIN_REQUEST
+    s3, serial, twin = res["stage3_s"], res["serial_s"], res["twin_s"]
+    print(f"stage3 {gname} x {fleet} ({CARD}): executor n_virtual "
+          f"{tr.dev.n} on one card, flops_scale = bytes_scale = 1; fused "
+          f"stage I {STAGE3_S1} episodes + stage II {STAGE3_S2} updates at "
+          f"K={TRAIN_K} on the calibrated fleet "
+          + " + ".join(f"{k} {v:.6f}" for k, v in twin.items())
+          + f" s; launches on the path {res['counts']}; "
+          f"peak_memory_gb={res['peak_gb']:.3f}")
+    print(f"stage3 s per stage3_system_batched update (K={STAGE3_K}, "
+          f"repeats {STAGE3_REPEATS}, {STAGE3_UPDATES} updates): total "
+          f"{sum(s3.values()):.6f} = " + " + ".join(
+              f"{k} {v:.6f}" for k, v in s3.items())
+          + "; serial stage3_system episode: total "
+          f"{sum(serial.values()):.6f} = " + " + ".join(
+              f"{k} {v:.6f}" for k, v in serial.items()))
+    print("stage3 batch-mean measured ms per update: "
+          + ", ".join(f"{h.stage} {h.exec_time * 1e3:.6f}" for h in rows
+                      if h.stage.startswith("sys")))
+    print(f"stage3 record, median of {RECORD_RUNS} runs (wall ms / host "
+          f"dispatch ms / calibrated twin ms): " + "; ".join(
+              f"{k} {w * 1e3:.6f} / {h * 1e3:.6f} / {t * 1e3:.6f}"
+              for k, (w, h, t) in res["record"].items()))
+    print(f"stage3 path wall s: {res['path_s']:.3f} (calibration "
+          f"{res['calibration_s']:.3f})")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1919,6 +2285,17 @@ def main() -> int:
             "launches_per_stage1_update": fused["captured"]["stage1"][name],
             "device_ms": fprof["device_ms_per_launch"][name]}
     del fused
+
+    # path 6: Stage III on the card (the executor on CUDA streams, the
+    # calibration, then Stage I and II fused on the calibrated fleet:
+    # gnn_mp's pair and wc_trips; Stage III against measured wall-clock)
+    stage3 = stage3_path(dev)
+    check(_launch_counts() == stage3["counts"],
+          f"the Stage III path's launches: {_launch_counts()}")
+    check_stage3_path(stage3)
+    for name in ("gnn_mp_pair", "wc_oracle_trips"):
+        by_name[name]["stage3"] = {"launches": stage3["counts"][name]}
+    del stage3
 
     ported = {}
     for name, k in by_name.items():

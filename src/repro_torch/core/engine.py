@@ -3,15 +3,15 @@ imports nothing of ``repro``).
 
 Unified reward-engine protocol — one interface over every reward source.
 
-DOPPLER's stages differ only in where ``ExecTime(A)`` comes from: the WC
-digital twin (Stage II: the serial reference loop, the compiled batch
-engine, or the oracle on the card, ``sim_torch.TorchWCEngine``, which
-takes the place of the reference's ``JaxOracleEngine``) or the real
-work-conserving executor (Stage III, not ported yet: its engine waits
-for the executor).  Every source is a :class:`RewardEngine` —
-``exec_times(assignments, episode) -> (K,)`` plus capability flags — and
-``DopplerTrainer`` has one engine-driven update core
-(``training.train_rl``).
+DOPPLER's three stages differ only in where ``ExecTime(A)`` comes from:
+the WC digital twin (Stage II: the serial reference loop, the compiled
+batch engine, or the oracle on the card, ``sim_torch.TorchWCEngine``,
+which takes the place of the reference's ``JaxOracleEngine``) or the real
+work-conserving executor (Stage III: the observed wall-clock of
+``executor.WCExecutor``, one CUDA stream a logical device).  Every source
+is a :class:`RewardEngine` — ``exec_times(assignments, episode) -> (K,)``
+plus capability flags — and ``DopplerTrainer`` has one engine-driven
+update core (``training.train_rl``).
 
 Capability flags drive the trainer and evaluator:
 
@@ -19,6 +19,9 @@ Capability flags drive the trainer and evaluator:
   (otherwise the adapter loops for it).
 * ``deterministic`` — the reward is seed-independent (noise-free sim /
   oracle); repeated evaluations of one assignment dedup to a single call.
+* ``measured``      — rewards are wall-clock observations of a real
+  system (the executor), i.e. non-replayable: repeats reduce noise
+  instead of being redundant.
 
 Seed convention (as in the reference): a K-row reward query at trainer
 episode ``e`` uses seeds ``e*K + k`` — at K=1 exactly the ``seed=episode``
@@ -43,6 +46,7 @@ class RewardEngine:
     name: str = "engine"
     batched: bool = False           # scores K assignments per call
     deterministic: bool = False     # seed-independent rewards
+    measured: bool = False          # wall-clock of a real system
 
     def exec_times(self, assignments, episode: int = 0) -> np.ndarray:
         """(K, n) assignments -> (K,) ExecTime seconds.
@@ -121,6 +125,46 @@ class SimRewardEngine(RewardEngine):
 
 
 # ---------------------------------------------------------------------------
+# Real-system adapter
+# ---------------------------------------------------------------------------
+class ExecutorRewardEngine(RewardEngine):
+    """The real WC executor as a Stage-III reward engine.
+
+    ``exec_times`` runs each assignment ``repeats`` times through the
+    executor's plan-compiled batch path (repeats interleaved across the
+    batch — common-random-numbers denoising: every assignment's r-th
+    measurement sees similar machine conditions) and reduces with
+    ``reduce`` ('median' | 'mean' | 'min')."""
+
+    batched = True
+    measured = True
+    name = "executor"
+
+    _REDUCERS = {"median": np.median, "mean": np.mean, "min": np.min}
+
+    def __init__(self, executor, repeats: int = 1, reduce: str = "median"):
+        if reduce not in self._REDUCERS:
+            raise ValueError(f"unknown reduce {reduce!r}; "
+                             f"have {sorted(self._REDUCERS)}")
+        self.executor = executor
+        self.repeats = repeats
+        self.reduce = reduce
+
+    def exec_times(self, assignments, episode: int = 0) -> np.ndarray:
+        A = np.asarray(assignments)
+        if A.ndim == 1:
+            A = A[None, :]
+        ts = self.executor.execute_batch(A, repeats=self.repeats)
+        return self._REDUCERS[self.reduce](ts, axis=1)
+
+    def evaluate_repeats(self, assignment, n_runs: int,
+                         seed0: int = 1000) -> np.ndarray:
+        a = np.asarray(assignment)
+        return np.asarray(self.executor.execute_batch(
+            a[None, :], repeats=n_runs)[0])
+
+
+# ---------------------------------------------------------------------------
 # Callable adapter
 # ---------------------------------------------------------------------------
 class CallableEngine(RewardEngine):
@@ -151,14 +195,17 @@ def as_engine(obj, **kwargs) -> RewardEngine:
     """Coerce any reward source to a :class:`RewardEngine`.
 
     Accepts an engine (returned as-is; ``sim_torch.TorchWCEngine`` is
-    one), a ``WCSimulator``, or a plain callable; ``kwargs`` pass through
-    to the adapter constructor."""
+    one), a ``WCSimulator``, a ``WCExecutor``, or a plain callable;
+    ``kwargs`` pass through to the adapter constructor."""
     if isinstance(obj, RewardEngine):
         return obj
     # late import: keep engine.py import-light and cycle-free
     from .simulator import WCSimulator
     if isinstance(obj, WCSimulator):
         return SimRewardEngine(obj, **kwargs)
+    from .executor import WCExecutor
+    if isinstance(obj, WCExecutor):
+        return ExecutorRewardEngine(obj, **kwargs)
     if callable(obj):
         return CallableEngine(obj, **kwargs)
     raise TypeError(f"cannot adapt {type(obj).__name__} to a RewardEngine")

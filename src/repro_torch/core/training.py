@@ -4,6 +4,9 @@ Stage I   imitation of the CRITICAL-PATH teacher (Eq. 9)
 Stage II  REINFORCE against the WC digital twin (Eq. 10): the oracle on
           the card (``TorchWCEngine``, one ``wc_trips`` launch per reward
           batch) or the numpy ``WCSimulator``
+Stage III REINFORCE against the real system: the measured wall-clock of
+          the work-conserving executor (``core/executor.py``, one CUDA
+          stream a logical device) through ``ExecutorRewardEngine``
 
 Policy-gradient details per §6.1, as in the reference: lr 1e-4 linearly
 decayed to 1e-7, exploration eps 0.2 linearly decayed to 0, entropy
@@ -23,8 +26,8 @@ card each update is one CUDA graph replay.
 
 A placement request: encode the graph once (``gnn_mp``), take the greedy
 episode and a sampled population, score them all in one oracle batch
-(``wc_oracle``), and return the best.  Not in this package yet: Stage
-III, checkpoints, hierarchical placement, re-placement, pretraining and
+(``wc_oracle``), and return the best.  Not in this package yet:
+checkpoints, hierarchical placement, re-placement, pretraining and
 ``FleetTrainer``.
 """
 from __future__ import annotations
@@ -40,7 +43,9 @@ from ..train.optim import AdamState, adamw_init, adamw_update, linear_schedule
 from .assign import GraphData, build_graph_data, encode, rollout_batch
 from .device import resolve_device, sync
 from .devices import DeviceModel
-from .engine import RewardEngine, SimRewardEngine, as_engine
+from .engine import (ExecutorRewardEngine, RewardEngine, SimRewardEngine,
+                     as_engine)
+from .executor import WCExecutor
 from .features import COMM_FACTOR_DEFAULT
 from .gnn import ENCODER_BACKENDS
 from .graph import DataflowGraph
@@ -165,8 +170,8 @@ class _PhaseClock:
 
 
 class DopplerTrainer:
-    """Owns the dual-policy parameters, trains them (Stage I, Stage II) and
-    answers placement requests.
+    """Owns the dual-policy parameters, trains them (Stages I, II and III)
+    and answers placement requests.
 
     Entry points run on the card (``device="cuda"``) unless the caller
     asks for the CPU; a CUDA device without a GPU raises.  Both kernel
@@ -177,8 +182,9 @@ class DopplerTrainer:
     injected step-major draw tables (``assign.rollout_batch``'s
     ``draws``), which is how the tests replay the reference's streams.
     ``seconds`` sums the wall seconds of each training phase, each ended
-    by a device sync (Stage I: teacher, replay, backward, adamw; Stage
-    II: sample, oracle, replay_backward, adamw; the fused engines:
+    by a device sync (Stage I: teacher, replay, backward, adamw; Stages
+    II and III: sample, oracle (for Stage III the executor's
+    measurements), replay_backward, adamw; the fused engines:
     teacher and dynamics (Stage I), warmup and capture (the first
     dispatch of a graph), updates); a caller may clear it.  ``losses``
     holds the loss of every Stage I episode and RL update in order, and
@@ -453,6 +459,50 @@ class DopplerTrainer:
                              n_updates, batch_size, stage="sim_batch",
                              log_every=log_every, draws=draws, **ablation)
 
+    # ---------------------------------------------------------- Stage III
+    def stage3_system(self, n_episodes: int,
+                      system_exec_time: Callable[[np.ndarray], float],
+                      log_every: int = 0, draws: Sequence | None = None,
+                      **ablation) -> list[float]:
+        """Online refinement against the real WC executor: the reward is
+        the observed wall-clock of one execution (the serial protocol: one
+        episode, one measurement, one gradient).  ``system_exec_time`` is
+        a callable ``assignment -> seconds`` (e.g. ``WCExecutor.execute``)
+        or anything :func:`engine.as_engine` accepts."""
+        return self.train_rl(system_exec_time, n_episodes, batch_size=1,
+                             stage="sys", serial=True, log_every=log_every,
+                             draws=draws, **ablation)
+
+    def stage3_system_batched(self, n_updates: int, system,
+                              batch_size: int = 8, repeats: int = 1,
+                              log_every: int = 0,
+                              draws: Sequence | None = None,
+                              **ablation) -> list[float]:
+        """Batched Stage III: each update samples ``batch_size``
+        assignments in one batched rollout, measures them all through the
+        system's batch path (a ``WCExecutor``: one ``execute_batch`` —
+        plans cached, warm-up amortized, ``repeats`` interleaved) and
+        takes ONE batch-averaged REINFORCE step.
+
+        ``repeats`` applies to executor-backed systems: a ``WCExecutor``
+        is wrapped in ``ExecutorRewardEngine(repeats)``, an
+        ``ExecutorRewardEngine`` re-wrapped at ``repeats`` with its
+        ``reduce``; ``repeats != 1`` with any other system raises."""
+        if isinstance(system, WCExecutor):
+            system = ExecutorRewardEngine(system, repeats=repeats)
+        elif repeats != 1:
+            if isinstance(system, ExecutorRewardEngine):
+                system = ExecutorRewardEngine(system.executor,
+                                              repeats=repeats,
+                                              reduce=system.reduce)
+            else:
+                raise ValueError(
+                    "repeats is only meaningful for executor-backed "
+                    "systems; seeded/deterministic engines replay instead")
+        return self.train_rl(system, n_updates, batch_size=batch_size,
+                             stage="sys_batch", log_every=log_every,
+                             draws=draws, **ablation)
+
     # ------------------------------------------------------ fused engines
     def _capture(self, capture: bool | None) -> bool:
         """None: capture on the card, run eagerly on the CPU."""
@@ -656,8 +706,10 @@ class DopplerTrainer:
                  assignment: np.ndarray | None = None):
         """Paper protocol: mean +/- std of ``n_runs`` executions of the
         best found (else the greedy) assignment, through the engine
-        adapter (default: the oracle on this trainer's device, which is
-        noise-free, so the repeats dedup to one run and std is 0)."""
+        adapter's ``evaluate_repeats`` (default: the oracle on this
+        trainer's device, which is noise-free, so the repeats dedup to one
+        run and std is 0; an executor measures ``n_runs`` runs in one
+        ``execute_batch``)."""
         a = assignment if assignment is not None else self.best_assignment
         if a is None:
             a = self.greedy_assignment()

@@ -19,6 +19,11 @@ max(1, |loss|), gradients within 5e-6 of max(1, max|g|), params 5e-3);
 the fused engine's captured updates (CUDA graph replays) against the same
 function run eagerly on the kernel and on the plain backends, at that
 gate with makespans bit-identical, and its raise under capture;
+the Stage III executor (one stream a logical device): every edge in
+dependency order on the card's clock, every output within 1e-4 of its
+closed form, two independent chains at most 0.9 of their one-stream span
+on two streams, ``ExecutorRewardEngine`` batches, and buffers freed and
+handed out again across streams between runs without a wrong value;
 ``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
 and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 ``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
@@ -31,7 +36,11 @@ import pytest
 import torch
 
 from repro_torch.core.devices import get_device_model, uniform_box
+from repro_torch.core.engine import ExecutorRewardEngine
+from repro_torch.core.executor import WCExecutor
 from repro_torch.core.graph import DataflowGraph
+from repro_torch.core.heuristics import (critical_path_assignment,
+                                         round_robin_assignment)
 from repro_torch.core.nn import tree_leaves
 from repro_torch.core.sim_torch import (SimGraph, makespan_fifo_batch,
                                         trip_inputs)
@@ -338,6 +347,147 @@ def test_stage2_update_kernels_match_plain(cuda):
     assert (gnn_ops.pair_launches, wc_ops.trip_launches) == (p0, t0)
     _assert_same_update(kern, plain)
     assert kern.history == plain.history and kern.episode == 8
+
+
+# ------------------------------------------------ Stage III executor
+def _closed_form(ex, plan) -> dict:
+    """Each result of ``plan``'s run in float64: inputs 0, transfers copy,
+    r[0, 0] = s (1/s + seed 1e-6)^2 with seed the predecessors' sum."""
+    vals = dict.fromkeys(ex._input_results, 0.0)
+    for v, d, xfers, pred_keys, _, base in plan.steps:
+        for p, src in xfers:
+            vals[(p, d)] = vals[(p, src)]
+        seed = sum(vals[pk] for pk in pred_keys)
+        s = base.shape[0]
+        vals[(v, d)] = s * (1.0 / s + seed * 1e-6) ** 2 * 1e-9
+    return vals
+
+
+def _check_run(ex, a) -> set:
+    """A debug replay of ``a``: every edge's consumer starts after its
+    producer ends, every output constant and within 1e-4 relative of its
+    closed form; -> the streams its steps ran on."""
+    trace = ex.trace_run(a)
+    at = {v: (sid, st, en) for v, _, sid, st, en in trace["steps"]}
+    for p, v in ex.g.edges:
+        if p in at:
+            assert at[p][2].elapsed_time(at[v][1]) >= 0.0, (p, v)
+    want = _closed_form(ex, ex.compile_plan(a))
+    assert set(trace["results"]) == set(want)
+    for k, t in trace["results"].items():
+        lo, hi = float(t.min()), float(t.max())
+        assert lo == hi, k
+        if want[k] == 0.0:
+            assert lo == 0.0, k
+        else:
+            assert abs(lo - want[k]) <= 1e-4 * abs(want[k]), k
+    return {sid for sid, _, _ in at.values()}
+
+
+@pytest.mark.parametrize("gname,fleet", [("ffnn", "p100x4"),
+                                         ("llama_block", "mixed_gen4"),
+                                         ("llama_layer", "v100x8")])
+def test_executor_order_values_and_streams(cuda, gname, fleet):
+    g, fm = workloads.get_workload(gname), get_device_model(fleet)
+    ex = WCExecutor(g, n_virtual=fm.n, flops_scale=1e-3, bytes_scale=1e-2)
+    own = {s.stream_id for s in ex.streams}
+    assert len(own) == fm.n
+    assert torch.cuda.default_stream().stream_id not in own
+    for a in (critical_path_assignment(g, fm, seed=0),
+              round_robin_assignment(g, fm.n)):
+        streams = _check_run(ex, a)
+        assert streams <= own
+    assert streams == own                     # round robin: every stream
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+
+
+def _chains(side, length):
+    g = DataflowGraph(f"two_chains_{side}")
+    x = g.add_vertex("input", out_bytes=4.0)
+    for _ in range(2):
+        prev = x
+        for i in range(length):
+            v = g.add_vertex("matmul", flops=2.0 * side ** 3, out_bytes=4.0,
+                             meta_op=i)
+            g.add_edge(prev, v)
+            prev = v
+    return g.freeze()
+
+
+def _span_ms(trace) -> float:
+    ref = trace["steps"][0][3]
+    return (max(ref.elapsed_time(s[4]) for s in trace["steps"])
+            - min(ref.elapsed_time(s[3]) for s in trace["steps"]))
+
+
+def test_executor_two_streams_overlap(cuda):
+    """Two chains of 8 fp32 products at side 1,024 (chip_smoke.py's
+    gate): on two streams at most 0.9 of the device span on one (median
+    of 5 replays each), each stream first held 10 ms by a sleep kernel so
+    that the host's dispatch does not set the span."""
+    L = 8
+    ex = WCExecutor(_chains(1024, L), n_virtual=2)
+    two = np.array([0] + [0] * L + [1] * L)
+    one = np.zeros(1 + 2 * L, np.int64)
+    cycles = int(torch.cuda.get_device_properties(0).clock_rate * 10.0)
+    spans = {"one": [], "two": []}
+    for _ in range(5):
+        for name, a, n in (("one", one, 1), ("two", two, 2)):
+            ex.compile_plan(a)
+            for s in ex.streams[:n]:
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(cycles)
+            spans[name].append(_span_ms(ex.trace_run(a)))
+    ratio = np.median(spans["two"]) / np.median(spans["one"])
+    assert ratio <= 0.9, spans
+
+
+def test_executor_reward_engine_on_the_card(cuda):
+    g, fm = workloads.get_workload("ffnn"), get_device_model("p100x4")
+    ex = WCExecutor(g, n_virtual=fm.n, flops_scale=1e-2, bytes_scale=1e-1)
+    eng = ExecutorRewardEngine(ex, repeats=3)
+    rng = np.random.default_rng(0)
+    A = rng.integers(0, fm.n, size=(5, g.n))
+    A[3] = A[0]
+    ts = eng.exec_times(A)
+    assert ts.shape == (5,) and np.isfinite(ts).all() and (ts > 0).all()
+    assert len(ex._plan_cache) == 4           # rows 0 and 3 share a plan
+    reps = eng.evaluate_repeats(A[1], 4)
+    assert reps.shape == (4,) and (reps > 0).all()
+    assert 0 < ex.last_dispatch_s <= reps[-1]
+
+
+def test_executor_buffers_reused_across_streams(cuda):
+    """Runs of random assignments on a random DAG, with every stream's
+    freed blocks handed out again (filled with NaN) between runs: every
+    run's outputs stay right (a dropped result or a missing
+    ``record_stream`` lets a copy read a reused block)."""
+    rng = np.random.default_rng(3)
+    g = DataflowGraph("random_dag")
+    for _ in range(2):
+        g.add_vertex("input", out_bytes=float(rng.integers(1, 1 << 20)))
+    for v in range(2, 60):
+        side = int(rng.integers(16, 768))
+        g.add_vertex("matmul", flops=2.0 * side ** 3,
+                     out_bytes=float(rng.integers(4, 4 << 20)), meta_op=v)
+        for p in sorted(set(rng.integers(0, v, size=3).tolist())):
+            g.add_edge(p, v)
+    g = g.freeze()
+    ex = WCExecutor(g, n_virtual=4)
+    A = rng.integers(0, 4, size=(6, g.n))
+
+    def churn():
+        for s in ex.streams:
+            with torch.cuda.stream(s):
+                junk = [torch.full((int(n),), float("nan"), device=cuda)
+                        for n in rng.integers(1, 1 << 20, size=8)]
+            del junk
+    for a in A:
+        _check_run(ex, a)
+        churn()
+        ex.execute_batch(A, repeats=2)
+        churn()
+    _check_run(ex, A[0])
 
 
 # ----------------------------------------------- fused training (graphs)
