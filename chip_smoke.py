@@ -147,16 +147,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    dispatch ms and the calibrated twin's ms), peak memory, and one
    profiled ``execute_batch`` (device launches, streams, busy share).
    The ``gnn_mp`` pair and ``wc_trips`` must launch on this path.
+10. checkpoints and the paper's baselines, on the same request.  Resume
+   on the fused path with the capture kept: trainer A runs RESUME_UPDATES
+   ``stage2_fused`` updates at K 16, ``save_policy``, then RESUME_UPDATES
+   more; trainer B (another seed) first runs one fused update, so its
+   CUDA graph exists, then ``load_policy`` and the same updates: B's
+   makespans bit-identical to A's, params and both moments bit-equal, the
+   greedy assignment and the generator state equal, and B's next
+   dispatches replays of its one graph.  The same for one non-fused
+   ``train_rl`` update.  A CPU trainer's checkpoint restores onto the
+   card with params bit-equal, and ``load_policy`` raises ``ValueError``
+   for its generator (expected, caught by type).  Then GDP_EPISODES
+   ``GDPTrainer`` and PLACETO_EPISODES ``PlacetoTrainer`` episodes on the
+   ``gnn_mp`` pair, the first of each gated against a plain-backend twin
+   from the same params and generator state at path 7's bars, with the
+   pair's launches exact (one a GNN layer a forward: GDP 2 a rollout,
+   Placeto 2·n, the replay as many again); ``enumerative_assignment`` on
+   the host; then CRITICAL-PATH, EnumOpt, the GDP and Placeto bests and
+   DOPPLER's greedy assignment scored in one ``wc_trips`` launch,
+   bit-equal to the plain trip loop.  Prints the checkpoint's bytes and
+   save / load seconds, seconds an episode by phase, peak memory, the
+   host seconds of EnumOpt and the five makespans (random weights: no
+   quality claim).
    On each path the launch counts are reset just before it is driven and
    read just after; every Pallas kernel must have a port that launched on
    its path.
-10. prints the ``kernels`` JSON line and, last, the result line.
+11. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -179,12 +202,18 @@ from repro_torch.core.devices import (PRESETS,  # noqa: E402
 from repro_torch.core.graph import DataflowGraph  # noqa: E402
 from repro_torch.core.engine import (CallableEngine,  # noqa: E402
                                      ExecutorRewardEngine)
+from repro_torch.core.enumopt import enumerative_assignment  # noqa: E402
 from repro_torch.core.executor import WCExecutor  # noqa: E402
+from repro_torch.core.gdp import GDPTrainer  # noqa: E402
 from repro_torch.core.heuristics import (  # noqa: E402
     critical_path_assignment, round_robin_assignment)
 from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.placeto import PlacetoTrainer  # noqa: E402
+from repro_torch.core.policy_io import (load_policy,  # noqa: E402
+                                        save_policy)
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, trip_inputs)
+from repro_torch.core.simulator import WCSimulator  # noqa: E402
 from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
                                        _pg_loss_and_grad_batch)
 from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
@@ -207,6 +236,8 @@ from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models.transformer import init_decode_state  # noqa: E402
+from repro_torch.train.checkpoint import (latest_step,  # noqa: E402
+                                          restore_checkpoint)
 from repro_torch.train.optim import AdamState  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
@@ -272,6 +303,12 @@ EXEC_VALUE_TOL = 1e-4
 OVERLAP_SIDE, OVERLAP_CHAIN, OVERLAP_BAR = 1024, 16, 0.9
 OVERLAP_REPS, OVERLAP_HOLD_S = 5, 10e-3
 RECORD_RUNS = 5
+# path 10 on TRAIN_REQUEST: resume after RESUME_UPDATES fused updates at
+# K TRAIN_K (one dispatch), then the baselines' episodes (each a forward
+# of the policy, a reward from the numpy WCSimulator, a replay under
+# autograd and AdamW); the gates are path 7's
+RESUME_UPDATES, GDP_EPISODES, PLACETO_EPISODES = 4, 4, 2
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -2178,6 +2215,171 @@ def check_stage3_path(res) -> None:
           f"{res['calibration_s']:.3f})")
 
 
+# ------------------------------------------ checkpoints and the baselines
+def check_resumed(a, b, what: str) -> None:
+    """``b``, resumed from a checkpoint of ``a``, in ``a``'s state: params
+    and both AdamW moments bit-equal, counters, reward statistics and
+    generator state equal, the same greedy assignment."""
+    pairs = zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
+                tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu)))
+    check(all(torch.equal(x, y) for x, y in pairs),
+          f"{what}: params and moments bit-equal")
+    check((a.opt_state.step, a.episode, a._r_sum, a._r_sqsum, a._r_count)
+          == (b.opt_state.step, b.episode, b._r_sum, b._r_sqsum,
+              b._r_count), f"{what}: counters and reward statistics")
+    check(torch.equal(a.generator.get_state(), b.generator.get_state()),
+          f"{what}: generator state")
+    check(np.array_equal(a.greedy_assignment(), b.greedy_assignment()),
+          f"{what}: greedy assignment")
+
+
+def resume_path(dev) -> dict:
+    """Save and resume on TRAIN_REQUEST: the fused Stage II with trainer
+    B's capture built before the load, one non-fused ``train_rl`` update,
+    and a CPU trainer's checkpoint on the card."""
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    kw = dict(batch_size=TRAIN_K, updates_per_dispatch=RESUME_UPDATES)
+    a = DopplerTrainer(g, fm, seed=0, device=dev)
+    a.stage2_fused(RESUME_UPDATES, **kw)
+    t0 = time.perf_counter()
+    path = save_policy(CKPT_DIR / "fused", a)
+    save_s = time.perf_counter() - t0
+    nbytes = (path / "arrays.msgpack").stat().st_size
+    want = a.stage2_fused(RESUME_UPDATES, **kw)
+    b = DopplerTrainer(g, fm, seed=1, device=dev)
+    b.stage2_fused(1, **kw)
+    eng = _engine(b, "stage2")
+    check(eng.graphed.graph is not None, "B's fused engine is captured "
+                                         "before the load")
+    t0 = time.perf_counter()
+    load_policy(CKPT_DIR / "fused", b)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    got = b.stage2_fused(RESUME_UPDATES, **kw)
+    check(got == want, "the resumed fused updates' makespans bit-identical "
+                       "to the uninterrupted run's")
+    check(_engine(b, "stage2") is eng
+          and eng.graphed.replays == 1 + RESUME_UPDATES,
+          f"B replays its one graph: {eng.graphed.replays} replays")
+    check_resumed(a, b, "fused resume")
+
+    # one non-fused update, resumed
+    save_policy(CKPT_DIR / "train_rl", a)
+    want_rl = a.train_rl(a.default_engine(), 1, batch_size=TRAIN_K)
+    load_policy(CKPT_DIR / "train_rl", b)
+    got_rl = b.train_rl(b.default_engine(), 1, batch_size=TRAIN_K)
+    check(got_rl == want_rl, "the resumed train_rl update's makespans "
+                             "bit-identical")
+    check_resumed(a, b, "train_rl resume")
+
+    # a CPU trainer's checkpoint on the card
+    cpu = DopplerTrainer(g, fm, seed=3, device="cpu")
+    save_policy(CKPT_DIR / "cpu", cpu)
+    like = (b.params, AdamState(torch.zeros((), dtype=torch.int32),
+                                b.opt_state.mu, b.opt_state.nu))
+    (params, _), _ = restore_checkpoint(CKPT_DIR / "cpu",
+                                        latest_step(CKPT_DIR / "cpu"), like)
+    check(all(x.device.type == "cuda" and torch.equal(x.cpu(), y)
+              for x, y in zip(tree_leaves(params), tree_leaves(cpu.params))),
+          "a CPU checkpoint's params restore onto the card bit-equal")
+    episode = b.episode
+    try:
+        load_policy(CKPT_DIR / "cpu", b)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("cpu generator" in refused and "cuda generator" in refused
+          and b.episode == episode,
+          f"the CPU generator state is refused on the card: {refused!r}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {"trainer": a, "bytes": nbytes, "save_s": save_s,
+            "load_s": load_s, "makespans": np.asarray(want),
+            "refused": refused}
+
+
+def baselines_path(dev, doppler) -> dict:
+    """GDP and Placeto on the ``gnn_mp`` pair (the first episode of each
+    gated against a plain-backend twin), EnumOpt on the host, and the
+    five assignments scored in one ``wc_trips`` launch."""
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+    sim = WCSimulator(g, fm, noise_sigma=0.05)
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for T, n_ep in ((GDPTrainer, GDP_EPISODES),
+                    (PlacetoTrainer, PLACETO_EPISODES)):
+        kern = T(g, fm, seed=0, device=dev)
+        plain = T(g, fm, seed=0, device=dev, encoder_backend="torch")
+        check(kern.encoder_backend == "cuda", f"{T.name} on the pair")
+        layers = len(kern.params["gnn"]["layers"])
+        forward = layers * (1 if T is GDPTrainer else g.n)
+        _, first = _counted(lambda: kern.train(1, sim))
+        _, twin = _counted(lambda: plain.train(1, sim))
+        check(twin == dict.fromkeys(twin, 0),
+              f"the plain {T.name} twin launches no kernel: {twin}")
+        gate_update(f"{T.name} episode 1", kern, plain)
+        del plain
+        _, rest = _counted(lambda: kern.train(n_ep - 1, sim))
+        check(first == {"gnn_mp_pair": 2 * forward, "gnn_mp": 0,
+                        "wc_oracle_trips": 0, "wc_oracle": 0}
+              and rest["gnn_mp_pair"] == 2 * forward * (n_ep - 1),
+              f"{T.name}: {forward} pair launches a rollout and as many "
+              f"in the replay: {first}, {rest}")
+        check(len(kern.history) == n_ep
+              and all(np.isfinite(kern.history)), f"{T.name} history")
+        res[T.name] = {"trainer": kern, "per_episode": first,
+                       "seconds": {k: v / n_ep
+                                   for k, v in kern.seconds.items()}}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    enum = enumerative_assignment(g, fm)
+    res["enumopt_s"] = time.perf_counter() - t0
+    cands = {"CP": critical_path_assignment(g, fm, seed=0),
+             "EnumOpt": enum,
+             "GDP best": res["gdp"]["trainer"].best_assignment,
+             "Placeto best": res["placeto"]["trainer"].best_assignment,
+             "DOPPLER greedy": doppler.greedy_assignment()}
+    A = np.stack([np.asarray(a, dtype=np.int64) for a in cands.values()])
+    check(bool(((A >= 0) & (A < fm.n)).all()), "assignments in range")
+    ms, scored = _counted(
+        lambda: TorchWCEngine(g, fm, device=dev).exec_times(A))
+    check(scored["wc_oracle_trips"] == 1,
+          f"the five assignments in one wc_trips launch: {scored}")
+    plain_ms = TorchWCEngine(g, fm, backend="torch", device=dev).exec_times(A)
+    check(np.array_equal(np.asarray(ms), np.asarray(plain_ms)),
+          "the scoring batch bit-equal to the plain trip loop")
+    res["makespans"] = dict(zip(cands, np.asarray(ms).tolist()))
+    return res
+
+
+def print_path10(resume, base) -> None:
+    gname, fleet = TRAIN_REQUEST
+    print(f"resume {gname} x {fleet} ({CARD}): arrays.msgpack "
+          f"{resume['bytes']} bytes, save_policy {resume['save_s']:.6f} s, "
+          f"load_policy {resume['load_s']:.6f} s; {RESUME_UPDATES} fused "
+          f"updates at K={TRAIN_K} after the load bit-identical (batch "
+          f"means ms "
+          + ", ".join(f"{m * 1e3:.6f}" for m in
+                      resume["makespans"].reshape(RESUME_UPDATES, -1)
+                      .mean(1))
+          + "), one train_rl update bit-identical; refused as expected: "
+          f"{resume['refused'][:60]}")
+    for name in ("gdp", "placeto"):
+        r = base[name]
+        tr = r["trainer"]
+        print(f"{name} s per episode ({len(tr.history)} episodes): total "
+              f"{sum(r['seconds'].values()):.6f} = " + " + ".join(
+                  f"{k} {v:.6f}" for k, v in r["seconds"].items())
+              + f"; launches an episode {r['per_episode']}; makespans ms "
+              + ", ".join(f"{t * 1e3:.6f}" for t in tr.history))
+    print(f"baselines peak_memory_gb={base['peak_gb']:.3f}; enumopt host "
+          f"s {base['enumopt_s']:.6f}; one wc_trips batch, makespan ms: "
+          + ", ".join(f"{k} {v * 1e3:.6f}"
+                      for k, v in base["makespans"].items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2296,6 +2498,29 @@ def main() -> int:
     for name in ("gnn_mp_pair", "wc_oracle_trips"):
         by_name[name]["stage3"] = {"launches": stage3["counts"][name]}
     del stage3
+
+    # path 10: checkpoints and resume (the fused capture kept), then the
+    # baselines: GDP and Placeto on gnn_mp's pair, EnumOpt, one wc_trips
+    # batch scoring them
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    t_path = time.perf_counter()
+    resume = resume_path(dev)
+    base = baselines_path(dev, resume["trainer"])
+    counts = _launch_counts()
+    check(counts["gnn_mp_pair"] > 0 and counts["wc_oracle_trips"] > 0,
+          f"path 10 ran the gnn_mp pair and wc_trips: {counts}")
+    print_path10(resume, base)
+    print(f"path 10 wall s: {time.perf_counter() - t_path:.3f}; launches "
+          f"{counts}")
+    by_name["gnn_mp_pair"]["resume_baselines"] = {
+        "launches": counts["gnn_mp_pair"],
+        "per_gdp_episode": base["gdp"]["per_episode"]["gnn_mp_pair"],
+        "per_placeto_episode":
+            base["placeto"]["per_episode"]["gnn_mp_pair"]}
+    by_name["wc_oracle_trips"]["resume_baselines"] = {
+        "launches": counts["wc_oracle_trips"]}
+    del resume, base
 
     ported = {}
     for name, k in by_name.items():

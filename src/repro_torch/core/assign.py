@@ -10,15 +10,22 @@ becomes a Python loop over the n steps with the K episodes as a
 written-out leading batch axis; the episode state is updated in place.
 
 Three modes, as in the reference:
-  * sampled (``greedy=False``): ``argmax(logp + gumbel)`` per pick, with
-    an eps-branch that reuses the same gumbel row (uniform over the
-    candidates), exactly as ``train_fused._sample_scan`` samples;
+  * sampled (``greedy=False``): ``argmax(logp + gumbel)`` per pick, and
+    with probability eps a uniform pick over the candidates instead
+    (``argmax`` of an explore gumbel row over them);
   * greedy: pure argmax;
   * forced replay (``forced_actions``): the given (vertex, device) steps.
-Draws are either injected — step-major tables ``(g_sel (n,K,n),
-g_plc (n,K,nd), u_sel (n,K), u_plc (n,K))``, the layout of the
-reference's ``train_fused._episode_rng_tables`` — or drawn per step from
-the caller's ``torch.Generator`` (gumbel = -log(-log U)).
+Draws are either injected as step-major tables or drawn per step from
+the caller's ``torch.Generator`` (gumbel = -log(-log U)).  Six tables
+``(g_sel (n,K,n), g_plc (n,K,nd), u_sel (n,K), u_plc (n,K), e_sel
+(n,K,n), e_plc (n,K,nd))`` replay the reference's ``rollout``: each
+pick splits its key in three (policy gumbel, explore gumbel, explore
+uniform), and ``e_*`` are the rows of the second key.  Four tables (no
+``e_*``) are the layout of the reference's fused
+``train_fused._episode_rng_tables``, whose sampler has no explore key:
+the explore branch reuses the policy draw's gumbel row, exactly as
+``train_fused._sample_scan`` samples.  The generator draws its own
+explore rows, as the reference's key does.
 """
 from __future__ import annotations
 
@@ -210,12 +217,20 @@ def _episodes(params, gd: GraphData, K: int, enc, eps: float, greedy: bool,
         raise ValueError("a sampled rollout needs injected draws or a "
                          "torch.Generator")
     if draws is not None:
-        g_sel, g_plc, u_sel, u_plc = (torch.as_tensor(x, device=dev)
-                                      for x in draws)
-        if g_sel.shape != (n, K, n) or g_plc.shape != (n, K, nd):
-            raise ValueError(f"draws must be step-major (n, K, n) / "
-                             f"(n, K, nd); got {tuple(g_sel.shape)} / "
-                             f"{tuple(g_plc.shape)}")
+        if len(draws) not in (4, 6):
+            raise ValueError(f"draws are 4 or 6 step-major tables, not "
+                             f"{len(draws)}")
+        tables = [torch.as_tensor(x, device=dev) for x in draws]
+        g_sel, g_plc, u_sel, u_plc = tables[:4]
+        # four tables: the explore branch reuses the policy's gumbel rows
+        e_sel, e_plc = tables[4:] if len(tables) == 6 else (g_sel, g_plc)
+        for name, t, want in (("g_sel", g_sel, (n, K, n)),
+                              ("g_plc", g_plc, (n, K, nd)),
+                              ("e_sel", e_sel, (n, K, n)),
+                              ("e_plc", e_plc, (n, K, nd))):
+            if t.shape != want:
+                raise ValueError(f"draws must be step-major: {name} is "
+                                 f"{tuple(t.shape)}, not {want}")
     dmask = torch.ones(K, nd, dtype=torch.bool, device=dev)
     outs = {key: [] for key in ("v", "d", "logp_v", "logp_d", "ent_v",
                                 "ent_d")}
@@ -225,11 +240,14 @@ def _episodes(params, gd: GraphData, K: int, enc, eps: float, greedy: bool,
         if sampled:
             if draws is not None:
                 gs, gp, us, up = g_sel[s], g_plc[s], u_sel[s], u_plc[s]
+                es, ep = e_sel[s], e_plc[s]
             else:
                 gs, gp = _gumbel(generator, (K, n)), _gumbel(generator,
                                                              (K, nd))
                 us = torch.rand(K, generator=generator, device=dev)
                 up = torch.rand(K, generator=generator, device=dev)
+                es, ep = _gumbel(generator, (K, n)), _gumbel(generator,
+                                                             (K, nd))
         if forced is not None:
             v = forced[:, s, 0]
         elif sel_mode == "cp":
@@ -238,9 +256,9 @@ def _episodes(params, gd: GraphData, K: int, enc, eps: float, greedy: bool,
             v = argmax_first(logp_v)
         else:
             v_soft = argmax_first(logp_v + gs)
-            # == argmax(where(cand, 0, -inf) + gs): the eps-branch reuses
-            # the policy draw's gumbel row
-            v_unif = argmax_first(torch.where(cand, gs, -torch.inf))
+            # == categorical(k2, where(cand, 0, -inf)): uniform over the
+            # candidates
+            v_unif = argmax_first(torch.where(cand, es, -torch.inf))
             v = torch.where(us < eps, v_unif, v_soft)
 
         x_dev, ready = _device_features(gd, v, st.placed, st.assigned,
@@ -257,7 +275,7 @@ def _episodes(params, gd: GraphData, K: int, enc, eps: float, greedy: bool,
         elif greedy:
             d = argmax_first(logp_d)
         else:
-            d = torch.where(up < eps, argmax_first(gp),
+            d = torch.where(up < eps, argmax_first(ep),
                             argmax_first(logp_d + gp))
 
         outs["v"].append(v)
@@ -285,7 +303,8 @@ def rollout_batch(params, gd: GraphData, K: int, eps: float = 0.0,
                   sel_mode: str = "learned", plc_mode: str = "learned",
                   encoder_backend: str = "torch", enc=None):
     """K episodes with a leading batch axis.  ``forced_actions`` (K, n, 2)
-    replays given steps; ``draws`` are the injected step-major tables;
+    replays given steps; ``draws`` are the injected step-major tables
+    (six, or the fused sampler's four: the module docstring);
     ``enc`` reuses precomputed ``encode(...)`` output.
 
     Returns a dict: order, devices (K, n), actions (K, n, 2), assignment

@@ -26,9 +26,9 @@ card each update is one CUDA graph replay.
 
 A placement request: encode the graph once (``gnn_mp``), take the greedy
 episode and a sampled population, score them all in one oracle batch
-(``wc_oracle``), and return the best.  Not in this package yet:
-checkpoints, hierarchical placement, re-placement, pretraining and
-``FleetTrainer``.
+(``wc_oracle``), and return the best.  Checkpoints and resume:
+``core/policy_io.py``.  Not in this package yet: hierarchical
+placement, re-placement, pretraining and ``FleetTrainer``.
 """
 from __future__ import annotations
 
@@ -231,6 +231,9 @@ class DopplerTrainer:
         self.params = tree_map(lambda x: x.to(self.device), init_policies(
             init_gen, d_hidden=d_hidden, gnn_layers=gnn_layers))
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # a reference checkpoint's PRNG key, kept to be written back
+        # unchanged (``policy_io``); the port never draws from it
+        self.key: np.ndarray | None = None
         self.opt_state: AdamState = adamw_init(self.params)
         self.lr_sched = linear_schedule(lr0, lr1, total_episodes)
         self.eps_sched = linear_schedule(eps0, eps1, total_episodes)

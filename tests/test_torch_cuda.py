@@ -19,6 +19,12 @@ max(1, |loss|), gradients within 5e-6 of max(1, max|g|), params 5e-3);
 the fused engine's captured updates (CUDA graph replays) against the same
 function run eagerly on the kernel and on the plain backends, at that
 gate with makespans bit-identical, and its raise under capture;
+a checkpoint resumed into a trainer whose fused engine is already
+captured (bit-identical makespans, params, moments and generator), and
+the generator's device type checked when a CPU checkpoint loads on the
+card; GDP's and Placeto's episodes on the ``gnn_mp`` pair against the
+plain backend at the training gate, with their pair launches (2 a GNN
+layer per GDP episode, 2·n a layer per Placeto episode);
 the Stage III executor (one stream a logical device): every edge in
 dependency order on the card's clock, every output within 1e-4 of its
 closed form, two independent chains at most 0.9 of their one-stream span
@@ -38,6 +44,12 @@ import torch
 from repro_torch.core.devices import get_device_model, uniform_box
 from repro_torch.core.engine import ExecutorRewardEngine
 from repro_torch.core.executor import WCExecutor
+from repro_torch.core.gdp import GDPTrainer
+from repro_torch.core.placeto import PlacetoTrainer
+from repro_torch.core.policy_io import load_policy, save_policy
+from repro_torch.core.simulator import WCSimulator
+from repro_torch.train.checkpoint import latest_step, restore_checkpoint
+from repro_torch.train.optim import AdamState
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.heuristics import (critical_path_assignment,
                                          round_robin_assignment)
@@ -732,3 +744,73 @@ def test_mamba2_scan_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):                  # state of the wrong shape
         ssd_ops.ssd_scan(q, k, v, log_a, 8, torch.zeros(1, 2, 8, 4,
                                                         device=cuda))
+
+
+# ------------------------------------- checkpoints and the baselines
+def test_fused_resume_after_capture(cuda, tmp_path):
+    """Trainer B captures its fused engine (one update), then loads A's
+    checkpoint: its next dispatches replay the same graph on the restored
+    state, bit-identical to A's continuation."""
+    a, _ = _train_twins(cuda)
+    a.stage2_fused(2, batch_size=8, updates_per_dispatch=2)
+    save_policy(tmp_path, a)
+    want = a.stage2_fused(2, batch_size=8, updates_per_dispatch=2)
+    b = DopplerTrainer(a.g, a.dev, seed=7, device=cuda)
+    b.stage2_fused(1, batch_size=8, updates_per_dispatch=2)
+    eng = _fused_engine(b, "stage2")
+    assert eng.graphed.graph is not None
+    load_policy(tmp_path, b)
+    assert b.stage2_fused(2, batch_size=8, updates_per_dispatch=2) == want
+    assert _fused_engine(b, "stage2") is eng and eng.graphed.replays == 3
+    for x, y in zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
+                    tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu))):
+        assert torch.equal(x, y)
+    assert a.opt_state.step == b.opt_state.step and a.episode == b.episode
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert np.array_equal(a.greedy_assignment(), b.greedy_assignment())
+
+
+def test_checkpoint_from_the_cpu_on_the_card(cuda, tmp_path):
+    """A CPU trainer's checkpoint: its params restore onto the card
+    bit-equal; ``load_policy`` refuses its mt19937 generator state for
+    the card's Philox generator and leaves the trainer as it was."""
+    g, fm = workloads.get_workload("ffnn"), get_device_model("p100x4")
+    src = DopplerTrainer(g, fm, seed=3, device="cpu")
+    src.stage2_sim_batched(1, batch_size=4)
+    save_policy(tmp_path, src)
+    card = DopplerTrainer(g, fm, seed=0, device=cuda)
+    like = (card.params, AdamState(torch.zeros((), dtype=torch.int32),
+                                   card.opt_state.mu, card.opt_state.nu))
+    (params, _), _ = restore_checkpoint(tmp_path, latest_step(tmp_path),
+                                        like)
+    for x, y in zip(tree_leaves(params), tree_leaves(src.params)):
+        assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+    before = card.generator.get_state()
+    with pytest.raises(ValueError, match="cpu generator.*cuda generator"):
+        load_policy(tmp_path, card)
+    assert card.episode == 0 and torch.equal(card.generator.get_state(),
+                                             before)
+
+
+@pytest.mark.parametrize("kind", ["gdp", "placeto"])
+def test_baseline_episode_kernels_match_plain(cuda, kind):
+    """One episode on the kernel backend against the plain one, from the
+    same params and generator seed: chip_smoke.py's training gate, and
+    the pair's launches (a GDP rollout encodes once, a Placeto rollout
+    once a step; the replay as many again)."""
+    T = {"gdp": GDPTrainer, "placeto": PlacetoTrainer}[kind]
+    g, fm = workloads.get_workload("ffnn"), get_device_model("p100x4")
+    kern = T(g, fm, seed=0, device=cuda)
+    plain = T(g, fm, seed=0, device=cuda, encoder_backend="torch")
+    assert kern.encoder_backend == "cuda"
+    sim = WCSimulator(g, fm, noise_sigma=0.05)
+    layers = len(kern.params["gnn"]["layers"])
+    per_rollout = layers * (1 if kind == "gdp" else g.n)
+    p0 = gnn_ops.pair_launches
+    kern.train(1, sim)
+    assert gnn_ops.pair_launches - p0 == 2 * per_rollout
+    p0 = gnn_ops.pair_launches
+    plain.train(1, sim)
+    assert gnn_ops.pair_launches == p0
+    _assert_same_update(kern, plain)
+    assert kern.history == plain.history

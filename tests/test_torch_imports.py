@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``."""
+``chip_smoke.py`` imports jax or the JAX package ``repro``, nor
+``msgpack``, which the card's machine does not have (the checkpoint
+format is decoded by hand, ``train/_msgpack.py``)."""
 import ast
 import pathlib
 import subprocess
@@ -15,7 +17,7 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def test_no_import_names_jax_or_repro():
@@ -37,7 +39,7 @@ def test_no_import_names_jax_or_repro():
 def test_every_module_imports_without_jax():
     code = f"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "repro"):
+for name in ("jax", "jaxlib", "repro", "msgpack"):
     sys.modules[name] = None          # any import of them now fails
 sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / "src")!r}]
 import repro_torch
@@ -46,7 +48,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
           and sys.modules[m] is not None]
 assert not loaded, loaded
 print(len(mods))

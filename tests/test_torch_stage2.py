@@ -1,5 +1,7 @@
-"""Stage II of the port against the JAX reference trainer, at eps 0 on
-the reference's draws (its key chain turned into injected tables):
+"""Stage II of the port against the JAX reference trainer on the
+reference's draws (its key chain turned into the six injected tables of
+``assign.rollout_batch``), at eps 0 and at eps 0.2 (whole sampled
+trajectories, the explore branch included):
 
 * ``train_rl`` over ``TorchWCEngine`` (the plain trip loop on the CPU)
   against ``train_rl`` over ``JaxOracleEngine``;
@@ -25,8 +27,9 @@ import torch
 from repro.core import training as jax_training
 from repro.core.engine import JaxOracleEngine, SimRewardEngine
 from repro.core.simulator import WCSimulator as JaxWCSimulator
-from repro.core.train_fused import _episode_rng_tables
-from repro_torch.core import training
+from repro.core import assign as jax_assign
+from repro.core.train_fused import _episode_key_chain, _episode_rng_tables
+from repro_torch.core import assign, training
 from repro_torch.core.sim_torch import TorchWCEngine
 from repro_torch.core.simulator import WCSimulator
 from test_torch_train import (assert_params_close,
@@ -34,6 +37,26 @@ from test_torch_train import (assert_params_close,
                               trainer_pair)
 
 EPS0 = dict(eps0=0.0, eps1=0.0, total_episodes=200)
+EPS02 = dict(eps0=0.2, eps1=0.0, total_episodes=200)
+ATOL = 1e-5
+
+
+def reference_draws(keys, n: int, nd: int) -> list:
+    """The six step-major tables of the reference's non-fused ``rollout``
+    on ``keys`` (K, 2): the fused sampler's four
+    (``_episode_rng_tables``) and the explore gumbel rows of each pick's
+    second key (``k2`` of ``split(kv, 3)`` / ``split(kd, 3)``: its
+    ``categorical(k2, where(mask, 0, -inf))``)."""
+    K = keys.shape[0]
+    kvs, kds = _episode_key_chain(keys, n)
+
+    def explore(ks, width):
+        k2 = jax.vmap(lambda k: jax.random.split(k, 3)[1])(
+            ks.reshape(-1, 2))
+        return jax.vmap(lambda k: jax.random.gumbel(k, (width,)))(
+            k2).reshape(n, K, width)
+    return [np.array(x) for x in (*_episode_rng_tables(keys, n, nd),
+                                  explore(kvs, n), explore(kds, nd))]
 
 
 def _same_bookkeeping(pt, jt):
@@ -52,16 +75,15 @@ def step_pair(jt, pt, run_ref, run_port, K, reward=None):
 
     The reference's next update draws with one ``_next_key`` split K ways
     (``reward`` None: the serial protocol, where the key itself samples
-    and the next one goes to the loss); the draw tables of those keys
-    replay its sampling at eps 0.  Its rewards are ``reward``'s (a
+    and the next one goes to the loss); the six draw tables of those
+    keys replay its sampling at any eps.  Its rewards are ``reward``'s (a
     reference engine's) on its sampled assignments, and its advantages
     its own arithmetic (``_batched_rl_update`` / ``_rl_episode``) on its
     reward statistics before the update."""
     serial = reward is None
     _, sub = jax.random.split(jt.key)
     keys = sub[None] if serial else jax.random.split(sub, K)
-    draws = [[np.array(x) for x in
-              _episode_rng_tables(keys, jt.g.n, jt.dev.n)]]
+    draws = [reference_draws(keys, jt.g.n, jt.dev.n)]
     # keyword arguments as the reference trainer passes them, so that
     # its compiled functions are reused
     modes = dict(sel_mode=jt.sel_mode, plc_mode=jt.plc_mode,
@@ -137,14 +159,15 @@ def test_train_rl_over_the_oracle_matches_reference(gname, fleet):
                                "adamw"}
 
 
-def test_stage2_sim_batched_matches_reference():
+@pytest.mark.parametrize("sched", [EPS0, EPS02], ids=["eps0", "eps0.2"])
+def test_stage2_sim_batched_matches_reference(sched):
     """``stage2_sim_batched`` on the copied ``WCSimulator(noise_sigma=
     0.05)``: the noisy reward stream bit-identical to the reference's, on
     both of its engines."""
-    jt, pt = trainer_pair("diamond", "mixed_gen4", **EPS0)
+    jt, pt = trainer_pair("diamond", "mixed_gen4", **sched)
     jsim = JaxWCSimulator(jt.g, jt.dev, noise_sigma=0.05)
     sim = WCSimulator(pt.g, pt.dev, noise_sigma=0.05)
-    _, serial = trainer_pair("diamond", "mixed_gen4", **EPS0)
+    _, serial = trainer_pair("diamond", "mixed_gen4", **sched)
     for _ in range(3):
         draws = []
 
@@ -162,10 +185,11 @@ def test_stage2_sim_batched_matches_reference():
     assert [h.stage for h in serial.history] == ["sim_batch"] * 3
 
 
-def test_stage2_sim_serial_matches_reference():
+@pytest.mark.parametrize("sched", [EPS0, EPS02], ids=["eps0", "eps0.2"])
+def test_stage2_sim_serial_matches_reference(sched):
     """The per-episode protocol: K = 1 tables from the reference's key
     chain (one key to sample, one consumed by its loss)."""
-    jt, pt = trainer_pair("diamond", "mixed_gen4", **EPS0)
+    jt, pt = trainer_pair("diamond", "mixed_gen4", **sched)
     jsim = JaxWCSimulator(jt.g, jt.dev, noise_sigma=0.05)
     sim = WCSimulator(pt.g, pt.dev, noise_sigma=0.05)
     for _ in range(4):
@@ -173,3 +197,40 @@ def test_stage2_sim_serial_matches_reference():
                   lambda d: pt.stage2_sim(1, sim=sim, draws=d), K=1)
     _same_bookkeeping(pt, jt)
     assert_params_close(pt, jt)
+
+
+@pytest.mark.parametrize("gname,fleet", [("diamond", "mixed_gen4"),
+                                         ("ffnn", "p100x4")])
+def test_rollout_eps_matches_reference_key_chain(gname, fleet):
+    """Whole eps-0.2 episodes on the six tables of the reference's keys:
+    ``rollout_batch`` against its ``rollout_batch`` and one episode
+    against its ``rollout`` — the same actions, log-probs and entropies
+    within 1e-5.  The fused sampler's four tables (the explore branch on
+    the policy's gumbel rows) leave the reference's trajectory."""
+    jt, pt = trainer_pair(gname, fleet)
+    K, eps = 4, 0.2
+    keys = jax.random.split(jax.random.PRNGKey(11), K)
+    draws = reference_draws(keys, jt.g.n, jt.dev.n)
+    assert (draws[2] < eps).any() and (draws[3] < eps).any()
+
+    def same(out, ref):
+        assert np.array_equal(out["actions"].numpy(),
+                              np.asarray(ref["actions"]))
+        assert np.array_equal(out["assignment"].numpy(),
+                              np.asarray(ref["assignment"]))
+        for key in ("sel_logp", "plc_logp", "sel_ent", "plc_ent"):
+            np.testing.assert_allclose(out[key].numpy(),
+                                       np.asarray(ref[key]), atol=ATOL)
+
+    ref = jax_assign.rollout_batch(jt.params, jt.gd, keys, jnp.float32(eps))
+    same(assign.rollout_batch(pt.params, pt.gd, K, eps, draws=draws), ref)
+    one = jax_assign.rollout(jt.params, jt.gd, keys[0], jnp.float32(eps),
+                             jnp.zeros((jt.g.n, 2), jnp.int32),
+                             jnp.array(False))
+    same(assign.rollout(pt.params, pt.gd, eps,
+                        draws=[t[:, :1] for t in draws]), one)
+    four = assign.rollout_batch(pt.params, pt.gd, K, eps, draws=draws[:4])
+    assert not np.array_equal(four["actions"].numpy(),
+                              np.asarray(ref["actions"]))
+    with pytest.raises(ValueError):
+        assign.rollout_batch(pt.params, pt.gd, K, eps, draws=draws[:5])

@@ -1,5 +1,6 @@
 """Stage III of the port (``stage3_system_batched``, ``stage3_system``)
-against the JAX reference trainer, at eps 0 on the reference's draws.
+against the JAX reference trainer, on the reference's draws (at eps 0, and
+the serial protocol also at eps 0.2).
 
 Wall-clock cannot be replayed, so the executor is stood in for by a
 deterministic one on both sides: the noise-free ``WCSimulator`` (the
@@ -22,7 +23,7 @@ from repro.core.simulator import WCSimulator as JaxWCSimulator
 from repro_torch.core import executor
 from repro_torch.core.engine import ExecutorRewardEngine
 from repro_torch.core.simulator import WCSimulator
-from test_torch_stage2 import EPS0, _same_bookkeeping, step_pair
+from test_torch_stage2 import EPS0, EPS02, _same_bookkeeping, step_pair
 from test_torch_train import assert_params_close, trainer_pair
 
 
@@ -71,10 +72,12 @@ def test_stage3_system_batched_matches_reference(gname, fleet):
                                "adamw"}
 
 
-def test_stage3_system_serial_matches_reference():
+@pytest.mark.parametrize("sched", [EPS0, EPS02], ids=["eps0", "eps0.2"])
+def test_stage3_system_serial_matches_reference(sched):
     """The serial protocol: one episode, one measurement, one gradient;
-    the reference gets its engine's ``exec_time``, the port the engine."""
-    jt, pt = trainer_pair("diamond", "mixed_gen4", **EPS0)
+    the reference gets its engine's ``exec_time``, the port the engine
+    (at eps 0.2 the explore branch replays the reference's key too)."""
+    jt, pt = trainer_pair("diamond", "mixed_gen4", **sched)
     jeng, peng = stand_ins(jt, pt)
     for _ in range(3):
         step_pair(jt, pt, lambda: jt.stage3_system(1, jeng.exec_time),

@@ -5,8 +5,9 @@ The reference runs with its "xla" backends (the plain twins of its Pallas
 kernels); the port runs its plain versions on the CPU.  Parameters come
 across with ``to_numpy_params`` -> ``params_from_numpy``; sampled episodes
 are given, or (Stage II, ``tests/test_torch_stage2.py``) replay the
-reference's key chain through injected draw tables, which reproduce its
-non-fused sampling only at eps = 0.  So:
+reference's key chain through the six injected draw tables of
+``assign.rollout_batch``, which reproduce its non-fused sampling at any
+eps.  So:
 
 * the losses and gradients are held on GIVEN actions (sampled at eps 0
   and at eps 0.2): loss within 1e-5 relative, every gradient
