@@ -169,10 +169,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    save / load seconds, seconds an episode by phase, peak memory, the
    host seconds of EnumOpt and the five makespans (random weights: no
    quality claim).
+11. hierarchical placement and re-placement (``DopplerTrainer(...,
+   hierarchy=HIER_CFG)``, the reference's fig-6 setting: 64 segments, 3
+   refinement rounds, top-k 24) on ``v100x8`` at the policy's published
+   width.  ``wc_trips`` bit-equal to the plain trip loop on a
+   ``synthetic_layered(32, 16)`` refine batch in both placements.  On
+   ``synthetic_layered(256, 16)`` (n 4,113, two levels): fused Stage I
+   (HIER_S1 episodes) and Stage II (HIER_S2 updates at K 16, one a
+   dispatch, each update's segment-level batch re-scored bit-equal by the
+   plain trip loop), one ``train_rl`` update over flat rewards
+   (``ExpandingEngine`` on the flat oracle), ``place(refine=True)``,
+   ``replace`` for a device loss, a straggler and a link degradation
+   without commit (budget 5 s) and the loss committed, after which
+   HIER_AFTER fused updates are bit-identical (makespans, params,
+   moments) to a fresh 7-device trainer's from the same state.  On
+   ``synthetic_layered(4096, 16)`` (n 65,553, three levels, random
+   weights): coarsen and ``place(refine=True)``.  Each ``place()``: one
+   ``wc_trips`` launch an engine call, its makespan bit-equal to a
+   one-row re-scoring, at most every expanded segment-CP candidate's,
+   refinement monotone; after the loss no vertex on a device >= 7 and
+   makespan <= CP.  Prints coarsen seconds and segment sizes, seconds of
+   each stage and phase, refinement rounds, moves and rows, ``replace``
+   latency, source and budget, a refine batch's ``wc_trips`` per-call
+   and device ms, bound and scratch at both sizes, the largest gap to
+   the float64 numpy ``WCSimulator`` at 4,113 (no bar), peak memory.
    On each path the launch counts are reset just before it is driven and
-   read just after; every Pallas kernel must have a port that launched on
-   its path.
-11. prints the ``kernels`` JSON line and, last, the result line.
+   read just after (checks against plain versions and timings excluded);
+   every Pallas kernel must have a port that launched on its path.
+12. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -198,26 +222,30 @@ from repro_torch.core.calibrate import (calibrate_fleet,  # noqa: E402
                                         executor_measure)
 from repro_torch.core.device import sync  # noqa: E402
 from repro_torch.core.devices import (PRESETS,  # noqa: E402
-                                      get_device_model, uniform_box)
+                                      FleetEvent, get_device_model,
+                                      uniform_box)
 from repro_torch.core.graph import DataflowGraph  # noqa: E402
 from repro_torch.core.engine import (CallableEngine,  # noqa: E402
-                                     ExecutorRewardEngine)
+                                     ExecutorRewardEngine, RewardEngine)
 from repro_torch.core.enumopt import enumerative_assignment  # noqa: E402
 from repro_torch.core.executor import WCExecutor  # noqa: E402
 from repro_torch.core.gdp import GDPTrainer  # noqa: E402
 from repro_torch.core.heuristics import (  # noqa: E402
     critical_path_assignment, round_robin_assignment)
+from repro_torch.core.hierarchy import (ExpandingEngine,  # noqa: E402
+                                        HierarchyConfig, propose_moves)
 from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.placeto import PlacetoTrainer  # noqa: E402
 from repro_torch.core.policy_io import (load_policy,  # noqa: E402
                                         save_policy)
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
-                                        TorchWCEngine, trip_inputs)
+                                        TorchWCEngine, makespan_fifo_batch,
+                                        trip_inputs)
 from repro_torch.core.simulator import WCSimulator  # noqa: E402
 from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
                                        _pg_loss_and_grad_batch)
 from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
-                                          list_workloads)
+                                          list_workloads, synthetic_layered)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -309,6 +337,20 @@ RECORD_RUNS = 5
 # autograd and AdamW); the gates are path 7's
 RESUME_UPDATES, GDP_EPISODES, PLACETO_EPISODES = 4, 4, 2
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# path 11: the hierarchy at the reference's own setting
+# (benchmarks/fig6_scalability.py:50) on HIER_FLEET: HIER_TRAIN trains
+# (fused Stage I HIER_S1 episodes, Stage II HIER_S2 updates at K HIER_K,
+# one flat-reward update), places and re-places (HIER_EVENTS without
+# commit, then the loss committed and HIER_AFTER fused updates);
+# HIER_BIG only coarsens and places (random weights); HIER_CHECK's refine
+# batch is small enough for the plain trip loop
+HIER_FLEET = "v100x8"
+HIER_CFG = HierarchyConfig(n_segments=64, refine_rounds=3, refine_top_k=24)
+HIER_TRAIN, HIER_BIG, HIER_CHECK = (256, 16), (4096, 16), (32, 16)
+HIER_S1, HIER_S2, HIER_K, HIER_AFTER = 16, 16, 16, 2
+HIER_EVENTS = (FleetEvent.device_loss(3), FleetEvent.straggler_onset(0, 0.5),
+               FleetEvent.link_degradation(1, factor=0.25))
+HIER_BUDGET_S = 5.0
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -468,7 +510,8 @@ def check_gnn_mp(dev) -> list:
                                                    segs, csr)))
             plain_ms = time_ms(plain, iters=max(it // 10, 2))
             _, lib_rows = _profiled(lambda: [lib() for _ in range(calls)])
-            _, k_rows = _profiled(lambda: [kern() for _ in range(calls)])
+            _, k_rows = _profiled(lambda: [kern() for _ in range(calls)],
+                                  (tag,))
             lib_dev = sum(r[0] for r in lib_rows) * 1e-3 / calls
             dev_ms = per_launch_ms(k_rows, (("k", tag),))["k"]
             b_ms, b_by = bound_ms(gnn_bytes(m, segs, d, nd), nd * m * d)
@@ -551,7 +594,7 @@ def check_wc_oracle(dev) -> dict:
     ms = time_ms(lambda: wc_ops.wc_step(run, rows, ridx, backend="cuda"))
     plain_ms = time_ms(lambda: wc_step_ref(run, rows, ridx))
     _, rows_p = _profiled(lambda: [wc_ops.wc_step(run, rows, ridx)
-                                   for _ in range(20)])
+                                   for _ in range(20)], ("wc_step(",))
     device_ms = per_launch_ms(rows_p, (("k", "wc_step("),))["k"]
     # each input read once, each output written once; compares/selects:
     # K target tests per row, then ~14 per row for the four chained mins
@@ -604,6 +647,21 @@ def check_trips(sg, A, what: str) -> tuple:
               f"{float((ms_k - ms_r).abs().max())}, n_done differs in "
               f"{int((nd_k != nd_r).sum())} episodes")
     return nd_r == sg.n_compute, places
+
+
+def trips_bound(sg, args) -> tuple:
+    """The trips of a ``wc_trips`` batch and its bound: -> (trips of the
+    longest episode, mean trips, bound ms, what bounds it).  One trip a
+    completion: every compute task and canonical transfer; each input
+    read once (indices as the int32 the kernel takes), each output
+    written once; the floor is the dependent chain of trips."""
+    B, N = args[0].shape
+    mm = N - sg.n
+    trips = sg.n_compute + args[3].sum(1)
+    words = (B * (2 * N + 2 * mm + 3 * (N + 1) + 2 * (sg.R + 1) + 6 * sg.R
+                  + sg.n + 1 + sg.K) + 2 * mm + sg.n * sg.C + 2 * B)
+    b_ms, b_by = bound_ms(4.0 * words, float(trips.sum()))
+    return int(trips.max()), float(trips.float().mean()), b_ms, b_by
 
 
 def check_wc_trips(dev, trainers, answers) -> dict:
@@ -674,16 +732,9 @@ def check_wc_trips(dev, trainers, answers) -> dict:
     kern = lambda: wc_ops.wc_trips(sg, *args)
     ms = time_ms(kern, iters=20, warmup=2)
     plain_ms = time_ms(lambda: wc_trips_ref(sg, *args), iters=2, warmup=1)
-    _, rows = _profiled(lambda: [kern() for _ in range(5)])
+    _, rows = _profiled(lambda: [kern() for _ in range(5)], ("wc_trips<",))
     dev_ms = per_launch_ms(rows, (("k", "wc_trips<"),))["k"]
-    # one trip a completion: every compute task and canonical transfer
-    trips = sg.n_compute + args[3].sum(1)
-    t_max, t_mean = int(trips.max()), float(trips.float().mean())
-    # each input read once (indices as the int32 the kernel takes), each
-    # output written once; the floor is the dependent chain of trips
-    words = (B * (2 * N + 2 * mm + 3 * (N + 1) + 2 * (sg.R + 1) + 6 * sg.R
-                  + sg.n + 1 + sg.K) + 2 * mm + sg.n * sg.C + 2 * B)
-    b_ms, b_by = bound_ms(4.0 * words, float(trips.sum()))
+    t_max, t_mean, b_ms, b_by = trips_bound(sg, args)
     nbytes = wc_ops.episode_bytes(sg.n, mm, sg.R, sg.K)
     print(f"wc_trips at llama_layer's batch (B={B}, n={sg.n}, R={sg.R}, "
           f"C={sg.C}, K={sg.K}, {nbytes} bytes of state per episode, "
@@ -727,7 +778,7 @@ def time_flash(dev, gen, shape, dt, rate) -> dict:
     name = "flash_fwd_wgmma" if fa_ops.uses_wgmma(dt, d) else "flash_fwd_mma"
     kern = lambda: fa_ops.flash_attention(q, k, v, backend="cuda")
     ms = time_ms(kern, iters=30, warmup=3)
-    _, rows = _profiled(lambda: [kern() for _ in range(5)])
+    _, rows = _profiled(lambda: [kern() for _ in range(5)], (name + "<",))
     dev_ms = per_launch_ms(rows, (("k", name + "<"),))["k"]
     plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1)
     qt, kt, vt = _sdpa_inputs(q, k, v)
@@ -971,7 +1022,8 @@ def check_mamba2(dev, cfg) -> dict:
     kern = lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0, backend="cuda")
     ms = time_ms(kern, iters=30, warmup=3)
     calls = 10
-    _, rows = _profiled(lambda: [kern() for _ in range(calls)])
+    _, rows = _profiled(lambda: [kern() for _ in range(calls)],
+                        ssd_ops.KERNELS)
     by_kernel = {name: sum(us for us, _, key in rows if name in key)
                  * 1e-3 / calls for name in ssd_ops.KERNELS}
     dev_ms = sum(by_kernel.values())
@@ -1097,14 +1149,8 @@ def profile_request(tr, untraced_s: float) -> dict:
     time per kernel name and the device's busy share of the request.
     Tracing slows the host side only, so the share is also given against
     the untraced request's wall time from the main path."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.place(n_samples=K_POP, eps=EPS)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+    traced_s, prof = _trace(lambda: tr.place(n_samples=K_POP, eps=EPS),
+                            ("segment_sum_pair", "wc_trips<"))
     rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) * 1e-6
     print(f"profile llama_layer request: traced_s={traced_s:.6f} "
@@ -1379,6 +1425,17 @@ def _launch_counts() -> dict:
     return {"gnn_mp_pair": gnn_ops.pair_launches, "gnn_mp": gnn_ops.launches,
             "wc_oracle_trips": wc_ops.trip_launches,
             "wc_oracle": wc_ops.launches}
+
+
+def _uncounted(fn):
+    """Run ``fn`` (a check against a plain version, or a timing) without
+    its launches counting toward the path's."""
+    c0 = _launch_counts()
+    out = fn()
+    gnn_ops.pair_launches, gnn_ops.launches = c0["gnn_mp_pair"], c0["gnn_mp"]
+    wc_ops.trip_launches, wc_ops.launches = (c0["wc_oracle_trips"],
+                                             c0["wc_oracle"])
+    return out
 
 
 def _counted(fn) -> tuple:
@@ -1795,15 +1852,10 @@ def profile_fused(tr, untraced_s: float) -> dict:
     replays) under ``torch.profiler``: device launches and busy share per
     update, device ms per kernel; the kernels inside the replayed graph
     must be the captured ones."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.stage2_fused(FUSED_PROFILED, batch_size=TRAIN_K,
-                        updates_per_dispatch=FUSED_DISPATCH)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+    traced_s, prof = _trace(
+        lambda: tr.stage2_fused(FUSED_PROFILED, batch_size=TRAIN_K,
+                                updates_per_dispatch=FUSED_DISPATCH),
+        ("segment_sum_pair", "wc_trips<"))
     rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) * 1e-6
     launches = sum(r[1] for r in rows)
@@ -1831,14 +1883,9 @@ def profile_fused(tr, untraced_s: float) -> dict:
 def profile_update(tr, engine, untraced_s: float) -> dict:
     """One more Stage II update under ``torch.profiler``: device launches
     and the device's busy share (traced and against an untraced update)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_rl(engine, 1, batch_size=TRAIN_K)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+    traced_s, prof = _trace(lambda: tr.train_rl(engine, 1,
+                                                batch_size=TRAIN_K),
+                            ("segment_sum_pair", "wc_trips<"))
     rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) * 1e-6
     launches = sum(r[1] for r in rows)
@@ -1855,17 +1902,37 @@ def profile_update(tr, engine, untraced_s: float) -> dict:
             "traced_s": traced_s, "device_ms_per_launch": per}
 
 
-def _profiled(fn):
-    """Run ``fn`` under ``torch.profiler``; -> (traced s, device rows)."""
+TRACE_TRIES = 3     # profiler sessions before a trace without the rows stands
+
+
+def _trace(fn, tags=()):
+    """Run ``fn`` under ``torch.profiler``; -> (traced s, the profile).
+    Now and then a session on the card comes back without the device's
+    activity (no kernel rows, or not the kernel asked for): a session with
+    no device rows, or none whose name holds each of ``tags``, runs
+    ``fn`` again, up to ``TRACE_TRIES`` sessions."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        keys = [key for _, _, key in device_rows(prof)]
+        if keys and all(any(t in k for k in keys) for t in tags):
+            break
+    return traced_s, prof
+
+
+def _profiled(fn, tags=()):
+    """``fn`` under ``torch.profiler`` (``_trace``) in inference mode;
+    -> (traced s, device rows)."""
+    def run():
         with torch.inference_mode():
             fn()
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+    traced_s, prof = _trace(run, tags)
     return traced_s, device_rows(prof)
 
 
@@ -1879,13 +1946,14 @@ def profile_serve(params, cfg, prompt, res, expect: dict) -> dict:
     decode = make_decode_step(cfg)
     out = {}
     phases = (("prefill", lambda: out.update(pre=prefill(
-                  params, {"tokens": prompt}, state)), res.prefill_s, 10),
+                  params, {"tokens": prompt}, state)), res.prefill_s, 10,
+               tuple(t for t, c in expect.items() if c)),
               ("decode step", lambda: decode(
                   params, {"tokens": res.tokens[:, :1]}, out["pre"][1], S),
-               res.decode_ms_per_step * 1e-3, 6))
+               res.decode_ms_per_step * 1e-3, 6, ()))
     rows_by_phase = {}
-    for name, fn, untraced_s, top in phases:
-        traced_s, rows = _profiled(fn)
+    for name, fn, untraced_s, top, tags in phases:
+        traced_s, rows = _profiled(fn, tags)
         busy_s = sum(r[0] for r in rows) * 1e-6
         print(f"profile {cfg.name} {name} (B={B}, S={S}): traced_s="
               f"{traced_s:.6f} untraced_s={untraced_s:.6f} device_busy_s="
@@ -2034,15 +2102,9 @@ def profile_exec(ex, assignment) -> dict:
     device's busy share (the union of their intervals over the traced
     wall time) beside their summed time over it (> 1 where streams
     overlap)."""
-    from torch.profiler import ProfilerActivity, profile
     ex.compile_plan(assignment)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ex.execute_batch(assignment[None], repeats=1)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+    traced_s, prof = _trace(lambda: ex.execute_batch(assignment[None],
+                                                     repeats=1))
     evs = sorted((e.time_range.start, e.time_range.end,
                   e.device_resource_id) for e in prof.events()
                  if str(e.device_type).endswith("CUDA"))
@@ -2380,6 +2442,341 @@ def print_path10(resume, base) -> None:
                       for k, v in base["makespans"].items()))
 
 
+# ------------------------------------------------------------- path 11
+class LoggedEngine(RewardEngine):
+    """A flat oracle that logs each call: its rows, makespans, seconds and
+    the ``wc_trips`` launches it made (one a call on the card)."""
+
+    batched = True
+    deterministic = True
+
+    def __init__(self, inner):
+        self.inner, self.name = inner, f"logged[{inner.name}]"
+        self.calls: list[dict] = []
+
+    def exec_times(self, assignments, episode: int = 0) -> np.ndarray:
+        A = np.asarray(assignments)
+        A = A[None] if A.ndim == 1 else A
+        t0, l0 = time.perf_counter(), wc_ops.trip_launches
+        ts = self.inner.exec_times(A, episode)
+        self.calls.append({"rows": len(A), "ms": np.asarray(ts),
+                           "s": time.perf_counter() - t0,
+                           "launches": wc_ops.trip_launches - l0})
+        return ts
+
+
+def assignment_of(actions) -> np.ndarray:
+    """(K, n, 2) (vertex, device) steps -> (K, n) assignments."""
+    acts = np.asarray(torch.as_tensor(actions).cpu())
+    A = np.empty(acts.shape[:2], np.int64)
+    np.put_along_axis(A, acts[..., 0], acts[..., 1], axis=1)
+    return A
+
+
+def fused_updates_checked(tr, n: int, what: str) -> tuple:
+    """``n`` captured Stage II updates at K HIER_K, one a dispatch; every
+    update's segment-level ``wc_trips`` batch is then re-scored by the
+    plain trip loop on the card, all in one batch (episodes are
+    independent): makespans bit-equal, every episode done.  -> (the
+    makespans of every update, seconds an update)."""
+    times, batches, s0 = [], [], tr.seconds.get("updates", 0.0)
+    for _ in range(n):
+        times += tr.stage2_fused(1, batch_size=HIER_K,
+                                 updates_per_dispatch=1)
+        batches.append(assignment_of(tr.last_update["actions"]))
+    per_update = (tr.seconds.get("updates", 0.0) - s0) / n
+    sg = tr._fused_cache["sim_graph"]
+    ms, ok = makespan_fifo_batch(sg, torch.as_tensor(
+        np.concatenate(batches), device=sg.esrc.device), backend="torch")
+    check(bool(ok.all()) and ms.cpu().tolist() == times,
+          f"{what}: each update's wc_trips batch bit-equal to the plain "
+          f"trip loop ({n} batches of {HIER_K})")
+    return times, per_update
+
+
+def hier_place(tr, what: str) -> dict:
+    """``place(refine=True)`` of a hierarchical trainer on its flat oracle
+    (logged): one ``wc_trips`` launch an engine call, the greedy rollout
+    2 ``gnn_mp`` pair launches; the makespan bit-equal to a one-row
+    re-scoring, at most every expanded segment-CP candidate's, and the
+    refinement monotone from the pool's and the V-cycle's best."""
+    eng = LoggedEngine(tr.flat_engine())
+    pl, counts = _counted(lambda: tr.place(engine=eng, refine=True))
+    calls = eng.calls
+    check(all(c["launches"] == 1 for c in calls)
+          and counts["wc_oracle_trips"] == len(calls)
+          and counts["gnn_mp_pair"] == 2 and counts["gnn_mp"] == 0,
+          f"{what}: one wc_trips launch an engine call ({len(calls)}), 2 "
+          f"pair launches: {counts}")
+    again = float(_uncounted(
+        lambda: tr.flat_engine().exec_times(pl.assignment[None]))[0])
+    check(pl.makespan == again, f"{what}: place()'s makespan {pl.makespan} "
+          f"bit-equal to a one-row re-scoring {again}")
+    n_pool = len(pl.makespans)
+    cp_rows = pl.makespans[n_pool - 3:]                  # the 3 CP seeds
+    check(pl.makespan <= cp_rows.min(),
+          f"{what}: {pl.makespan} <= expanded segment CP {cp_rows.min()}")
+    vc = tr.hier.n_levels > 1
+    best_in = min(float(calls[0]["ms"].min()),
+                  float(calls[1]["ms"][0]) if vc else np.inf)
+    t_in = float(calls[1 + vc]["ms"][0])
+    check(t_in == best_in and pl.makespan <= t_in
+          and pl.refine_state.exec_time == pl.makespan,
+          f"{what}: refinement from {t_in} (best of pool and V-cycle "
+          f"{best_in}) to {pl.makespan} never raises it")
+    rows = [c["rows"] for c in calls[2 + vc:]]
+    print(f"hier place {what} ({CARD}): n={tr.flat_graph.n} levels "
+          f"{[p.seg_graph.n for p in tr.hier.partition.levels]}; makespan "
+          f"ms pool best {calls[0]['ms'].min() * 1e3:.6f}"
+          + (f", V-cycle {float(calls[1]['ms'][0]) * 1e3:.6f}" if vc else "")
+          + f", refined {pl.makespan * 1e3:.6f}, segment CP best "
+          f"{cp_rows.min() * 1e3:.6f}; seconds pool "
+          f"{pl.seconds['pool']:.6f} vcycle {pl.seconds['vcycle']:.6f} "
+          f"refine {pl.seconds['refine']:.6f}; refine rounds "
+          f"{pl.refine_state.rounds_done} moves "
+          f"{pl.refine_state.moves_applied}, rows a call after the first "
+          f"{rows}; vcycle stats "
+          + str([{k: (round(v, 6) if isinstance(v, float) else v)
+                  for k, v in st.items()} for st in tr.hier.vcycle_stats])
+          + f"; engine calls {len(calls)}, oracle s "
+          f"{sum(c['s'] for c in calls):.6f}")
+    return {"placement": pl, "calls": calls, "counts": counts}
+
+
+def refine_batch(tr, a) -> np.ndarray:
+    """The candidates a refinement round proposes at flat assignment
+    ``a`` (``propose_moves`` with the trainer's top_k)."""
+    cands, _ = propose_moves(tr.flat_graph, a, tr.hierarchy.refine_top_k,
+                             tr.hier.exec_cost, tr.dev.n)
+    return cands
+
+
+def time_refine_batch(tr, A, what: str, iters: int) -> dict:
+    """One refine batch through ``wc_trips`` (the global scratch at these
+    sizes): per-call ms (CUDA events), device ms a launch (profiler), its
+    bound and scratch bytes."""
+    sg = tr.flat_engine().sim_graph
+    args = trip_inputs(sg, torch.as_tensor(A, device=sg.esrc.device))
+    B, N = args[0].shape
+    nbytes = wc_ops.episode_bytes(sg.n, N - sg.n, sg.R, sg.K)
+    where = trips_placements(sg)[0]
+    kern = lambda: wc_ops.wc_trips(sg, *args)          # noqa: E731
+    ms = time_ms(kern, iters=iters, warmup=1)
+    _, rows = _profiled(lambda: [kern() for _ in range(iters)],
+                        ("wc_trips<",))
+    dev_ms = per_launch_ms(rows, (("k", "wc_trips<"),))["k"]
+    t_max, t_mean, b_ms, b_by = trips_bound(sg, args)
+    out = {"n": sg.n, "B": B, "R": sg.R, "C": sg.C, "placement": where,
+           "episode_bytes": nbytes, "scratch_bytes": B * nbytes * (
+               where == "global"), "ms": ms, "device_ms": dev_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "trips_max": t_max,
+           "trips_mean": t_mean, "us_per_trip": ms * 1e3 / t_max}
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+    print(f"wc_trips {what} refine batch ({CARD}): B={B} n={sg.n} "
+          f"mm={N - sg.n} C={sg.C} {where}, {nbytes} bytes of state an "
+          f"episode, scratch {out['scratch_bytes']} bytes: {ms:.6f} ms per "
+          f"call, device (profiler) {dev} a launch, trips max {t_max} mean "
+          f"{t_mean:.1f}, {out['us_per_trip']:.4f} us a trip; bound "
+          f"{b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def hier_train_path(dev) -> dict:
+    """HIER_TRAIN on HIER_FLEET: fused Stage I and II on the segment graph
+    (every Stage II batch held against the plain trip loop), one
+    ``train_rl`` update over flat rewards, ``place(refine=True)``, three
+    re-placements without commit and a committed device loss followed by
+    fused updates gated against a fresh trainer on the new fleet."""
+    fm = get_device_model(HIER_FLEET)
+    g = synthetic_layered(*HIER_TRAIN)
+    res = {}
+    t0 = time.perf_counter()
+    tr = DopplerTrainer(g, fm, seed=0, device=dev, hierarchy=HIER_CFG)
+    res["setup_s"] = time.perf_counter() - t0
+    check(tr.hier.n_levels == 2 and tr.g.n < g.n,
+          f"{g.n} vertices coarsen in 2 levels: "
+          f"{[p.seg_graph.n for p in tr.hier.partition.levels]}")
+    print(f"hier coarsen n={g.n} ({CARD}): trainer set-up "
+          f"{res['setup_s']:.6f} s; levels " + ", ".join(
+              f"{st['n_in']} -> {st['n_out']} in {st['seconds']:.6f} s"
+              for st in tr.hier.partition.level_stats))
+
+    t0 = time.perf_counter()
+    tr.stage1_imitation_fused(HIER_S1)
+    sync(dev)
+    res["stage1_s"] = (time.perf_counter() - t0) / HIER_S1
+    check(_engine(tr, "stage1").graphed.captured
+          == {"gnn_mp_pair": 2, "wc_oracle_trips": 0},
+          f"hier stage I captured: {_engine(tr, 'stage1').graphed.captured}")
+    t0 = time.perf_counter()
+    times, per_update = fused_updates_checked(tr, HIER_S2, "hier stage II")
+    res["stage2_s"] = (time.perf_counter() - t0) / HIER_S2
+    res["stage2_update_s"] = per_update
+    check(_engine(tr, "stage2").graphed.captured
+          == {"gnn_mp_pair": 4, "wc_oracle_trips": 1},
+          f"hier stage II captured: {_engine(tr, 'stage2').graphed.captured}")
+    ms = np.asarray(times).reshape(HIER_S2, HIER_K)
+    check(bool(np.isfinite(ms).all()), "finite Stage II makespans")
+
+    flat = LoggedEngine(tr.flat_engine())
+    t0 = time.perf_counter()
+    _, c = _counted(lambda: tr.train_rl(ExpandingEngine(tr.hier, flat), 1,
+                                        batch_size=HIER_K))
+    res["flat_update_s"] = time.perf_counter() - t0
+    check(c == {"gnn_mp_pair": 4, "gnn_mp": 0, "wc_oracle_trips": 1,
+                "wc_oracle": 0} and flat.calls[0]["rows"] == HIER_K,
+          f"the flat-reward update: one wc_trips batch of {HIER_K} flat "
+          f"rows, 4 pair launches: {c}")
+    print(f"hier training ({CARD}): stage I fused {res['stage1_s']:.6f} s "
+          f"an episode ({HIER_S1}); stage II fused {res['stage2_s']:.6f} s "
+          f"an update with its plain-loop check, {per_update:.6f} s of "
+          f"dispatch ({HIER_S2} at K={HIER_K}, batch means ms "
+          f"{ms[0].mean() * 1e3:.6f} -> {ms[-1].mean() * 1e3:.6f}); "
+          f"flat-reward train_rl update {res['flat_update_s']:.6f} s "
+          f"(oracle {flat.calls[0]['s']:.6f} s, flat mean ms "
+          f"{flat.calls[0]['ms'].mean() * 1e3:.6f})")
+
+    res["place"] = hier_place(tr, f"n={g.n}")
+    pl = res["place"]["placement"]
+    A = refine_batch(tr, pl.assignment)
+    res["trips"] = _uncounted(
+        lambda: time_refine_batch(tr, A, f"n={g.n}", iters=5))
+    t0 = time.perf_counter()
+    numpy_ms = WCSimulator(g, fm, noise_sigma=0.0).run_batch(A)[:, 0]
+    numpy_s = time.perf_counter() - t0
+    card_ms = _uncounted(lambda: tr.flat_engine().exec_times(A))
+    gap = float(np.abs(card_ms - numpy_ms).max() / numpy_ms.min())
+    res["numpy_gap"] = gap
+    print(f"wc_trips vs the float64 numpy WCSimulator on the n={g.n} refine "
+          f"batch ({len(A)} rows): largest gap {gap:.6e} of the smallest "
+          f"makespan (no bar: ROADMAP C3); numpy {numpy_s:.6f} s")
+
+    res["replace"] = []
+    dev0, params0 = tr.dev, tr.params
+    for ev in HIER_EVENTS:
+        new_dev, _ = ev.apply(tr.dev)
+        eng = LoggedEngine(tr.flat_engine(new_dev))
+        r, c = _counted(lambda: tr.replace(ev, budget_s=HIER_BUDGET_S,
+                                           engine=eng, commit=False))
+        check(tr.dev is dev0 and tr.params is params0,
+              f"replace({ev.kind}, commit=False) leaves the trainer")
+        check(all(x["launches"] == 1 for x in eng.calls)
+              and c["wc_oracle_trips"] == len(eng.calls)
+              and c["gnn_mp_pair"] == 2,
+              f"replace({ev.kind}): one wc_trips launch an engine call, "
+              f"one greedy rollout: {c}")
+        check(r.makespan <= r.cp_makespan and r.makespan <= r.makespan_before
+              and r.assignment.max() < new_dev.n
+              and r.assignment.shape == (g.n,),
+              f"replace({ev.kind}): {r.makespan} <= CP {r.cp_makespan}, "
+              f"<= before {r.makespan_before}, devices < {new_dev.n}")
+        res["replace"].append(r)
+        print(f"replace {ev.kind}({ev.device}) ({CARD}): latency "
+              f"{r.latency_s:.6f} s (budget {r.budget_s}, within "
+              f"{r.within_budget}), source {r.source}, makespan ms before "
+              f"{r.makespan_before * 1e3:.6f} -> {r.makespan * 1e3:.6f}, "
+              f"CP {r.cp_makespan * 1e3:.6f}, refine rounds "
+              f"{r.refine_rounds} moves {r.refine_moves}, candidates "
+              f"{r.n_candidates}, engine rows {[x['rows'] for x in eng.calls]}")
+    loss = HIER_EVENTS[0]
+    check(loss.kind == "device_loss" and res["replace"][0].assignment.max()
+          < fm.n - 1, "after a device loss no vertex sits on a device >= 7")
+
+    eng = LoggedEngine(tr.flat_engine(loss.apply(tr.dev)[0]))
+    r, c = _counted(lambda: tr.replace(loss, budget_s=HIER_BUDGET_S,
+                                       engine=eng, commit=True))
+    check(all(x["launches"] == 1 for x in eng.calls)
+          and c["wc_oracle_trips"] == len(eng.calls)
+          and c["gnn_mp_pair"] == 2,
+          f"replace(device_loss, commit=True): one wc_trips launch an "
+          f"engine call, one greedy rollout: {c}")
+    check(tr.dev.n == fm.n - 1 and tr._fused_cache == {}
+          and tr.hier.n_devices == fm.n - 1 and tr.gd.nd == fm.n - 1
+          and len(tr.best_assignment) == tr.g.n,
+          "the committed loss: 7 devices, fused engines dropped")
+    fresh = DopplerTrainer(g, tr.dev, seed=1, device=dev, hierarchy=HIER_CFG)
+    _copy_state(tr, fresh)
+    fresh.best_assignment = tr.best_assignment.copy()
+    fresh.best_time = tr.best_time
+    got, _ = fused_updates_checked(tr, HIER_AFTER, "after the commit")
+    want, _ = fused_updates_checked(fresh, HIER_AFTER, "the fresh trainer")
+    for who, t in (("committed", tr), ("fresh", fresh)):
+        cap = _engine(t, "stage2").graphed.captured
+        check(cap == {"gnn_mp_pair": 4, "wc_oracle_trips": 1},
+              f"the {who} 7-device stage II captured: {cap}")
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves((tr.params, tr.opt_state.mu, tr.opt_state.nu)),
+        tree_leaves((fresh.params, fresh.opt_state.mu, fresh.opt_state.nu))))
+    check(got == want and gap == 0.0,
+          f"after the committed loss the fused updates are bit-identical "
+          f"to a fresh trainer's on the new fleet from the same state: "
+          f"makespans equal {got == want}, params and moments {gap}")
+    print(f"replace device_loss(3) committed ({CARD}): latency "
+          f"{r.latency_s:.6f} s, makespan ms {r.makespan * 1e3:.6f}; "
+          f"{HIER_AFTER} fused updates after it bit-identical to a fresh "
+          f"7-device trainer's (batch means ms "
+          + ", ".join(f"{m * 1e3:.6f}" for m in
+                      np.asarray(got).reshape(HIER_AFTER, -1).mean(1)) + ")")
+    res["trainer"] = tr
+    return res
+
+
+def hier_big_path(dev) -> dict:
+    """HIER_BIG on HIER_FLEET with random weights: coarsen (3 levels) and
+    ``place(refine=True)`` on the flat oracle, as the reference's
+    ``measure_big`` (no training); then one refine batch timed."""
+    fm = get_device_model(HIER_FLEET)
+    g = synthetic_layered(*HIER_BIG)
+    t0 = time.perf_counter()
+    tr = DopplerTrainer(g, fm, seed=0, device=dev, hierarchy=HIER_CFG)
+    setup_s = time.perf_counter() - t0
+    check(tr.hier.n_levels == 3,
+          f"{g.n} vertices coarsen in 3 levels: "
+          f"{[p.seg_graph.n for p in tr.hier.partition.levels]}")
+    print(f"hier coarsen n={g.n} ({CARD}): trainer set-up {setup_s:.6f} s; "
+          f"levels " + ", ".join(
+              f"{st['n_in']} -> {st['n_out']} in {st['seconds']:.6f} s"
+              for st in tr.hier.partition.level_stats))
+    res = {"setup_s": setup_s, "place": hier_place(tr, f"n={g.n}")}
+    pl = res["place"]["placement"]
+    A = refine_batch(tr, pl.assignment)
+    res["trips"] = _uncounted(
+        lambda: time_refine_batch(tr, A, f"n={g.n}", iters=2))
+    return res
+
+
+def hier_path(dev) -> dict:
+    """Path 11: the hierarchy and re-placement at n 4,113 (trained) and
+    65,553 (random weights), on a ``synthetic_layered(32, 16)`` refine
+    batch ``wc_trips`` against the plain trip loop in both placements."""
+    fm = get_device_model(HIER_FLEET)
+    g = synthetic_layered(*HIER_CHECK)
+    sg = SimGraph.build(g, fm, dev)
+    cost = (fm.exec_overhead_vec[None, :] + g.flops_array()[:, None]
+            / fm.flops_per_sec[None, :])
+    cost[g.input_mask()] = 0.0
+    cands, _ = propose_moves(g, critical_path_assignment(g, fm), 24, cost,
+                             fm.n)
+    ok, places = _uncounted(
+        lambda: check_trips(sg, cands, f"the n={g.n} refine batch"))
+    check(bool(ok.all()) and places == ("shared", "global"),
+          f"the n={g.n} refine batch runs both placements: {places}")
+    print(f"wc_trips bit-equal to the plain trip loop on the n={g.n} refine "
+          f"batch ({len(cands)} rows) in {places}")
+    torch.cuda.reset_peak_memory_stats()
+    train = hier_train_path(dev)
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    del train["trainer"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    big = hier_big_path(dev)
+    big_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"hier peak_memory_gb n={train['trips']['n']} {train_peak:.3f}, "
+          f"n={big['trips']['n']} {big_peak:.3f}")
+    return {"train": train, "big": big, "check_rows": len(cands),
+            "peak_gb": (train_peak, big_peak)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2521,6 +2918,29 @@ def main() -> int:
     by_name["wc_oracle_trips"]["resume_baselines"] = {
         "launches": counts["wc_oracle_trips"]}
     del resume, base
+
+    # path 11: hierarchical placement (coarsen -> place -> V-cycle refine)
+    # and re-placement at 4,113 and 65,553 vertices (the gnn_mp pair on
+    # the segment graph, wc_trips on segment and flat batches)
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    t_path = time.perf_counter()
+    hier = hier_path(dev)
+    counts = _launch_counts()
+    check(counts["gnn_mp_pair"] > 0 and counts["wc_oracle_trips"] > 0
+          and counts["gnn_mp"] == counts["wc_oracle"] == 0,
+          f"path 11 ran the gnn_mp pair and wc_trips: {counts}")
+    print(f"path 11 wall s: {time.perf_counter() - t_path:.3f}; launches "
+          f"{counts}")
+    by_name["gnn_mp_pair"]["hierarchical_place"] = {
+        "launches": counts["gnn_mp_pair"]}
+    by_name["wc_oracle_trips"]["hierarchical_place"] = {
+        "launches": counts["wc_oracle_trips"],
+        "refine_batch_n4113": hier["train"]["trips"],
+        "refine_batch_n65553": hier["big"]["trips"],
+        "plain_checked_rows_n529": hier["check_rows"],
+        "numpy_gap_n4113": hier["train"]["numpy_gap"]}
+    del hier
 
     ported = {}
     for name, k in by_name.items():

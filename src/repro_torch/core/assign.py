@@ -145,8 +145,16 @@ def _device_features(gd: GraphData, v, placed, assigned, est_end,
     f2 = torch.where(any_pred, arr_min, 0.0)
     f3 = torch.where(any_pred, arr_max, 0.0)
     f4 = torch.maximum(device_avail, f3)
-    pred_flops_on = torch.zeros(K, nd, device=v.device).scatter_add_(
-        1, src, torch.where(pm, gd.flops[ps], 0.0))
+    vals = torch.where(pm, gd.flops[ps], 0.0)
+    if v.is_cuda:
+        # scatter_add_ adds colliding floats atomically on CUDA, so its
+        # bits vary run to run; a one-hot sum over the preds does not
+        onehot = src[..., None] == torch.arange(nd, device=v.device)
+        pred_flops_on = torch.where(onehot, vals[..., None], 0.0).sum(1)
+    else:
+        # in pred order, as the reference's segment_sum; the CPU's sum of
+        # the one-hot would add through interleaved accumulators instead
+        pred_flops_on = torch.zeros(K, nd).scatter_add_(1, src, vals)
     scale = torch.clamp(torch.maximum(device_avail.amax(1), f4.amax(1)),
                         min=1e-9)[:, None]
     feats = torch.stack([dev_comp / gd.total_flops,

@@ -13,7 +13,10 @@ from a JAX key: it keeps one it loads (``trainer.key``, uint32) and
 writes it back unchanged, so repro -> port -> repro keeps it; a port
 trainer without one writes None, which the reference's loader skips.
 The port adds ``torch_generator`` — the sampling generator's device
-type and state — which the reference ignores.
+type and state — which the reference ignores.  A hierarchical trainer
+also writes ``hierarchy`` (``HierarchicalPolicy.state_dict``: every
+V-cycle level's vertex -> segment map and the refinement state), as the
+reference does; loading it checks the maps entry by entry.
 
 A resumed trainer continues with the same trajectories, params and
 greedy assignment as the uninterrupted run, on the batched and the fused
@@ -55,6 +58,9 @@ def save_policy(ckpt_dir: str | pathlib.Path, trainer) -> pathlib.Path:
         "torch_generator": {"device": gen.device.type,
                             "state": gen.get_state().tolist()},
     }
+    hier = getattr(trainer, "hier", None)
+    if hier is not None:
+        extra["hierarchy"] = hier.state_dict()
     opt = trainer.opt_state
     state = AdamState(torch.tensor(int(opt.step), dtype=torch.int32),
                       opt.mu, opt.nu)
@@ -69,7 +75,8 @@ def load_policy(ckpt_dir: str | pathlib.Path, trainer,
     graph and fleet: transfer is building the trainer on another graph
     first).  Everything is validated before the trainer is touched: a
     count or shape mismatch, an incomplete checkpoint, a hierarchical
-    one, or a generator of another device type raises and leaves it as
+    checkpoint into a flat trainer or the reverse, another partition
+    stack, or a generator of another device type raises and leaves it as
     it was."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -79,12 +86,19 @@ def load_policy(ckpt_dir: str | pathlib.Path, trainer,
             AdamState(torch.zeros((), dtype=torch.int32), opt.mu, opt.nu))
     (params, opt_state), extra = restore_checkpoint(ckpt_dir, step, like)
     hier_state = extra.get("hierarchy")
+    hier = getattr(trainer, "hier", None)
     if hier_state is not None:
+        if hier is None:
+            raise ValueError(
+                "checkpoint is hierarchical (segment-level policy + "
+                "refinement state) but the trainer was built flat; pass "
+                "hierarchy=HierarchyConfig(n_segments="
+                f"{hier_state['n_segments']}, ...) to DopplerTrainer")
+        hier.check_state_dict(hier_state)
+    elif hier is not None:
         raise ValueError(
-            "checkpoint is hierarchical (segment-level policy + "
-            "refinement state) but the trainer was built flat; the port "
-            "has no hierarchical trainer yet (ROADMAP A9a; the "
-            f"checkpoint's n_segments is {hier_state['n_segments']})")
+            "trainer is hierarchical but the checkpoint was saved by a "
+            "flat trainer (its params index a different graph)")
     gen = extra.get("torch_generator")
     mine = trainer.generator.device.type
     if gen is not None and gen["device"] != mine:
@@ -93,6 +107,8 @@ def load_policy(ckpt_dir: str | pathlib.Path, trainer,
             f"trainer's a {mine} generator: their states are not "
             f"interchangeable (a CPU mt19937 state, a CUDA Philox seed "
             f"and offset)")
+    if hier_state is not None:
+        hier.load_state_dict(hier_state)
     trainer.params = params
     trainer.opt_state = AdamState(int(opt_state.step), opt_state.mu,
                                   opt_state.nu)

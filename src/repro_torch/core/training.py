@@ -27,8 +27,16 @@ card each update is one CUDA graph replay.
 A placement request: encode the graph once (``gnn_mp``), take the greedy
 episode and a sampled population, score them all in one oracle batch
 (``wc_oracle``), and return the best.  Checkpoints and resume:
-``core/policy_io.py``.  Not in this package yet: hierarchical
-placement, re-placement, pretraining and ``FleetTrainer``.
+``core/policy_io.py``.
+
+Hierarchical mode (``hierarchy=``, ``core/hierarchy.py``): the flat graph
+is coarsened level by level (``graphs/partition.coarsen_multilevel``) and
+every stage above runs unchanged on the top segment graph; ``place()``
+expands a pool of segment candidates, descends the V-cycle and refines
+on the flat graph, every flat batch one oracle launch.  ``replace()``
+re-places after a ``FleetEvent`` (device loss, straggler, link
+degradation) under a wall-clock budget.  Not in this package yet:
+pretraining and ``FleetTrainer``.
 """
 from __future__ import annotations
 
@@ -39,10 +47,11 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..graphs.partition import coarsen_multilevel
 from ..train.optim import AdamState, adamw_init, adamw_update, linear_schedule
 from .assign import GraphData, build_graph_data, encode, rollout_batch
 from .device import resolve_device, sync
-from .devices import DeviceModel
+from .devices import DeviceModel, FleetEvent
 from .engine import (ExecutorRewardEngine, RewardEngine, SimRewardEngine,
                      as_engine)
 from .executor import WCExecutor
@@ -50,6 +59,8 @@ from .features import COMM_FACTOR_DEFAULT
 from .gnn import ENCODER_BACKENDS
 from .graph import DataflowGraph
 from .heuristics import critical_path_assignment
+from .hierarchy import (HierarchicalPolicy, HierarchyConfig, RefineState,
+                        project_assignment, refine_assignment)
 from .nn import tree_leaves, tree_map
 from .policies import init_policies
 from .sim_torch import ORACLE_BACKENDS, SimGraph, TorchWCEngine
@@ -145,13 +156,43 @@ class EpisodeRecord:
 
 @dataclasses.dataclass
 class Placement:
-    """One answered placement request."""
+    """One answered placement request.  A hierarchical trainer answers
+    with flat assignments: ``greedy`` is its expanded greedy episode,
+    ``population`` the rest of the expanded pool (best so far, CP seeds),
+    ``seconds`` split into pool / vcycle / refine, and ``refine_state`` the
+    flat refinement's bookkeeping."""
     assignment: np.ndarray      # (n,) the best candidate
     makespan: float             # its oracle makespan (seconds)
     greedy: np.ndarray          # (n,) the greedy episode
     population: np.ndarray      # (K, n) the sampled episodes
     makespans: np.ndarray       # (1 + K,) greedy first, then the samples
     seconds: dict               # wall time of encode / rollout / oracle
+    refine_state: RefineState | None = None
+
+
+@dataclasses.dataclass
+class ReplaceResult:
+    """Outcome of one :meth:`DopplerTrainer.replace` call.
+
+    ``makespan_before`` is the surviving-device projection of the OLD
+    placement scored on the NEW fleet — what the system would run at if
+    it kept the stale placement; ``makespan`` is the re-placed result.
+    ``cp_makespan`` is the best CRITICAL-PATH candidate in the pool (on
+    the new fleet), so ``makespan <= cp_makespan`` is structural whenever
+    CP seeds made it into the pool."""
+    assignment: np.ndarray          # flat-graph assignment on the new fleet
+    makespan: float
+    makespan_before: float
+    cp_makespan: float
+    source: str                     # 'projected' | 'policy' | 'cp' | 'refined'
+    latency_s: float
+    budget_s: float
+    within_budget: bool
+    fleet_fingerprint: str
+    event: FleetEvent | None = None
+    refine_rounds: int = 0
+    refine_moves: int = 0
+    n_candidates: int = 0
 
 
 class _PhaseClock:
@@ -191,7 +232,12 @@ class DopplerTrainer:
     ``last_update`` the actions, loss and gradients (and, for RL, the
     rewards and advantages) of the latest one.  ``_fused_cache`` keeps
     the fused engines (their graphs) by configuration, and the oracle's
-    ``SimGraph`` under "sim_graph"."""
+    ``SimGraph`` under "sim_graph".
+
+    ``hierarchy`` (a segment count or a :class:`HierarchyConfig`) coarsens
+    ``graph`` with ``coarsen_multilevel``: ``flat_graph`` keeps the flat
+    graph, ``hier`` the :class:`HierarchicalPolicy`, and ``g`` becomes the
+    top segment graph on which every stage runs unchanged."""
 
     def __init__(self, graph: DataflowGraph, dev: DeviceModel, seed: int = 0,
                  d_hidden: int = 64, gnn_layers: int = 2,
@@ -204,7 +250,7 @@ class DopplerTrainer:
                  sel_mode: str = "learned", plc_mode: str = "learned",
                  encoder_backend: str | None = None,
                  oracle_backend: str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", hierarchy=None):
         self.device = resolve_device(device)
         default = "cuda" if self.device.type == "cuda" else "torch"
         self.encoder_backend = encoder_backend or default
@@ -221,6 +267,19 @@ class DopplerTrainer:
                                                                  "etf"):
             raise ValueError(f"unknown ablation modes {sel_mode!r} / "
                              f"{plc_mode!r}")
+        self.flat_graph = graph
+        self.hier: HierarchicalPolicy | None = None
+        self.hierarchy: HierarchyConfig | None = None
+        if hierarchy is not None:
+            if isinstance(hierarchy, int):
+                hierarchy = HierarchyConfig(n_segments=hierarchy)
+            part = coarsen_multilevel(graph, hierarchy.n_segments,
+                                      cap_factor=hierarchy.cap_factor,
+                                      max_ratio=hierarchy.max_ratio,
+                                      max_levels=hierarchy.max_levels)
+            self.hierarchy = hierarchy
+            self.hier = HierarchicalPolicy(part, hierarchy, dev)
+            graph = part.seg_graph
         self.g, self.dev = graph, dev
         self.comm_factor = comm_factor
         self.sel_mode, self.plc_mode = sel_mode, plc_mode
@@ -252,6 +311,10 @@ class DopplerTrainer:
         self.losses: list[float] = []
         self.last_update: dict = {}
         self._fused_cache: dict = {}
+        # the flat oracle per fleet fingerprint, and CP seeds per
+        # (fingerprint, seed), for place() and replace()
+        self._twin_cache: dict = {}
+        self._cp_cache: dict = {}
 
     # ------------------------------------------------------------- utils
     def _baseline(self) -> tuple[float, float]:
@@ -292,6 +355,16 @@ class DopplerTrainer:
     def greedy_assignment(self) -> np.ndarray:
         return self._rollout(1, True)["assignment"][0].cpu().numpy()
 
+    def _greedy_on(self, gd: GraphData) -> np.ndarray:
+        """Greedy rollout against another ``GraphData`` (the policy graph
+        re-featurized for a derived fleet); greedy draws nothing, so the
+        generator does not move and re-placement stays side-effect-free
+        until commit."""
+        return rollout_batch(self.params, gd, 1, greedy=True,
+                             sel_mode=self.sel_mode, plc_mode=self.plc_mode,
+                             encoder_backend=self.encoder_backend
+                             )["assignment"][0].cpu().numpy()
+
     def sample_assignment(self, eps: float | None = None, draws=None):
         """One sampled episode at ``eps`` (default: the schedule's value)
         -> (assignment (n,), actions (n, 2))."""
@@ -303,6 +376,22 @@ class DopplerTrainer:
     def default_engine(self) -> TorchWCEngine:
         return TorchWCEngine(self.g, self.dev, backend=self.oracle_backend,
                              device=self.device)
+
+    def flat_engine(self, dev: DeviceModel | None = None) -> TorchWCEngine:
+        """The oracle of ``flat_graph`` on fleet ``dev`` (default: the
+        trainer's) on this trainer's device, cached per fleet fingerprint
+        (at most 4): what ``place()`` and ``replace()`` score flat
+        assignments with by default."""
+        dev = self.dev if dev is None else dev
+        fp = dev.fingerprint()
+        eng = self._twin_cache.get(fp)
+        if eng is None:
+            if len(self._twin_cache) >= 4:
+                self._twin_cache.pop(next(iter(self._twin_cache)))
+            eng = self._twin_cache[fp] = TorchWCEngine(
+                self.flat_graph, dev, backend=self.oracle_backend,
+                device=self.device)
+        return eng
 
     # ----------------------------------------------------------- Stage I
     def stage1_imitation(self, n_episodes: int, seed: int = 0,
@@ -669,17 +758,37 @@ class DopplerTrainer:
 
     # ----------------------------------------------------------- placement
     def place(self, engine=None, n_samples: int = 0, eps: float = 0.2,
-              draws=None) -> Placement:
+              draws=None, refine: bool = True,
+              include_flat_cp: bool = False) -> Placement:
         """Answer one placement request.
 
-        Candidates: the greedy episode, ``n_samples`` sampled episodes
+        Flat trainers: the greedy episode, ``n_samples`` sampled episodes
         (``draws`` injects the step-major tables of ``assign.rollout_batch``)
         and the best assignment so far, all scored in ONE ``engine`` batch
         (default: the oracle on this trainer's device).  The best wins
         (first on ties) and becomes ``best_assignment``.  With
         ``n_samples=0`` this is the reference's flat ``place()``: the
-        best-so-far or greedy assignment, scored."""
-        eng = engine if engine is not None else self.default_engine()
+        best-so-far or greedy assignment, scored.
+
+        Hierarchical trainers (the reference's branch): the greedy
+        segment assignment, the best so far and three
+        CRITICAL-PATH seeds on the segment graph, plus (``include_flat_cp``)
+        three on the flat graph, are expanded and scored in ONE ``engine``
+        batch (default: ``flat_engine()``, the oracle of the flat graph);
+        with more than one level the V-cycle descends from the best
+        segment candidate (``HierarchicalPolicy.refine_levels``) and its
+        flat result competes; then (``refine``) the winner takes the
+        bounded monotone flat refinement.  ``engine`` scores FLAT
+        assignments and is passed the trainer's episode.
+        ``best_assignment`` stays segment-level (Stage II's)."""
+        if self.hier is not None:
+            if n_samples or draws is not None:
+                raise ValueError("a hierarchical place() pools greedy, the "
+                                 "best so far and CP seeds; n_samples and "
+                                 "draws are the flat request's population")
+            return self._place_hier(engine, refine, include_flat_cp)
+        eng = as_engine(engine if engine is not None
+                        else self.default_engine())
         t0 = time.perf_counter()
         enc = encode(self.params, self.gd, self.encoder_backend)
         sync(self.device)
@@ -703,6 +812,165 @@ class DopplerTrainer:
                          population=cands[1:], makespans=ts[:len(cands)],
                          seconds={"encode": t1 - t0, "rollout": t2 - t1,
                                   "oracle": t3 - t2})
+
+    def _place_hier(self, engine, refine: bool,
+                    include_flat_cp: bool) -> Placement:
+        eng = as_engine(engine if engine is not None else self.flat_engine())
+        ep = self.episode
+        t0 = time.perf_counter()
+        cands = [self.greedy_assignment()]
+        if self.best_assignment is not None:
+            cands.append(np.asarray(self.best_assignment))
+        cands += [critical_path_assignment(self.g, self.dev, seed=s)
+                  for s in range(3)]
+        flat = [self.hier.expand(c) for c in cands]
+        if include_flat_cp:
+            flat += [critical_path_assignment(self.flat_graph, self.dev,
+                                              seed=s) for s in range(3)]
+        flat = np.stack(flat)
+        ts = np.asarray(eng.exec_times(flat, ep), dtype=float)
+        k = int(ts.argmin())
+        a, t = flat[k], float(ts[k])
+        t1 = time.perf_counter()
+        if self.hier.n_levels > 1:
+            kseg = int(ts[:len(cands)].argmin())
+            vc = self.hier.refine_levels(cands[kseg], episode=ep)
+            tv = float(eng.exec_times(vc[None, :], ep)[0])
+            if tv < t:
+                a, t = vc, tv
+        t2 = time.perf_counter()
+        if refine:
+            a, t = self.hier.refine(a, eng, episode=ep)
+        t3 = time.perf_counter()
+        return Placement(assignment=np.asarray(a), makespan=float(t),
+                         greedy=flat[0], population=flat[1:], makespans=ts,
+                         seconds={"pool": t1 - t0, "vcycle": t2 - t1,
+                                  "refine": t3 - t2},
+                         refine_state=self.hier.refine_state if refine
+                         else None)
+
+    # -------------------------------------------- dynamic-fleet re-place
+    def replace(self, event: FleetEvent | DeviceModel,
+                budget_s: float = 5.0, engine=None, cp_seeds: int = 2,
+                refine: bool = True, commit: bool = True) -> ReplaceResult:
+        """Re-place the graph after a fleet event, warm-starting from the
+        trained policy and the previous placement, under a hard
+        ``budget_s`` wall-clock contract.
+
+        ``event`` is a :class:`FleetEvent` (applied to the current fleet)
+        or a same-size replacement :class:`DeviceModel` (e.g. measured
+        post-degradation rates).  The candidate pool, at the policy
+        graph's level (segments for a hierarchical trainer):
+
+        1. the surviving-device PROJECTION of the previous placement
+           (``hierarchy.project_assignment``: orphans of a lost device
+           LPT-redistributed on the new fleet),
+        2. the policy's greedy rollout against the graph RE-FEATURIZED
+           for the new fleet (no gradient step),
+        3. CRITICAL-PATH seeds on the new fleet (the first unconditional,
+           so ``makespan <= cp_makespan`` is structural; the rest while
+           within budget), cached per (fleet fingerprint, seed).
+
+        All candidates are expanded and scored in ONE ``exec_times`` call
+        (``engine`` scores FLAT assignments; default: ``flat_engine`` of
+        the new fleet, cached per fingerprint), then the winner takes
+        deadline-bounded monotone refinement (no round starts past
+        ``t0 + budget_s``).  With ``commit=True`` the trainer swaps to the
+        new fleet: graph data, the fused engines dropped (their captured
+        graphs, static buffers and ``SimGraph`` were the old fleet's), the
+        reward statistics reset (the old fleet's makespan scale),
+        ``best_assignment`` the winning candidate at the policy graph's
+        level; ``commit=False`` leaves the trainer untouched."""
+        t0 = time.perf_counter()
+        deadline = t0 + float(budget_s)
+        if isinstance(event, FleetEvent):
+            new_dev, smap = event.apply(self.dev)
+            ev: FleetEvent | None = event
+        elif isinstance(event, DeviceModel):
+            if event.n != self.dev.n:
+                raise ValueError(
+                    "fleet size changed: pass a FleetEvent so the "
+                    "survivor map can project the old placement")
+            new_dev, smap, ev = event, np.arange(self.dev.n), None
+        else:
+            raise TypeError(f"event must be a FleetEvent or DeviceModel, "
+                            f"got {type(event).__name__}")
+        fp = new_dev.fingerprint()
+        eng = as_engine(engine if engine is not None
+                        else self.flat_engine(new_dev))
+        ep = self.episode
+        gd_new = build_graph_data(self.g, new_dev, self.comm_factor,
+                                  self.device)
+        a_prev = (np.asarray(self.best_assignment)
+                  if self.best_assignment is not None
+                  else self._greedy_on(self.gd))
+        cands = [project_assignment(self.g, new_dev, a_prev, smap)]
+        sources = ["projected"]
+        cands.append(self._greedy_on(gd_new))
+        sources.append("policy")
+        cp_rows: list[int] = []
+        for s in range(max(int(cp_seeds), 1)):
+            if s > 0 and time.perf_counter() >= deadline:
+                break
+            a_cp = self._cp_cache.get((fp, s))
+            if a_cp is None:
+                if len(self._cp_cache) >= 16:
+                    self._cp_cache.pop(next(iter(self._cp_cache)))
+                a_cp = self._cp_cache[(fp, s)] = critical_path_assignment(
+                    self.g, new_dev, seed=s)
+            cp_rows.append(len(cands))
+            cands.append(a_cp)
+            sources.append("cp")
+        seg = np.stack(cands)
+        flat = self.hier.expand(seg) if self.hier is not None else seg
+        ts = np.asarray(eng.exec_times(flat, ep), dtype=float)
+        k = int(ts.argmin())
+        a, t, source = flat[k].copy(), float(ts[k]), sources[k]
+        makespan_before = float(ts[0])
+        cp_makespan = float(ts[cp_rows].min()) if cp_rows else float("inf")
+        rounds_done = moves = 0
+        if refine and time.perf_counter() < deadline:
+            gf = self.flat_graph
+            cost = (new_dev.exec_overhead_vec[None, :]
+                    + gf.flops_array()[:, None]
+                    / new_dev.flops_per_sec[None, :])
+            cost[gf.input_mask()] = 0.0
+            cfg = self.hierarchy
+            a2, t2, rounds_done, moves = refine_assignment(
+                gf, cost, a, eng, int(new_dev.n), episode=ep + 1,
+                rounds=cfg.refine_rounds if cfg is not None else 2,
+                top_k=cfg.refine_top_k if cfg is not None else 16,
+                deadline=deadline)
+            if t2 < t:
+                a, t, source = a2, float(t2), "refined"
+        latency = time.perf_counter() - t0
+        result = ReplaceResult(
+            assignment=a, makespan=t, makespan_before=makespan_before,
+            cp_makespan=cp_makespan, source=source, latency_s=latency,
+            budget_s=float(budget_s),
+            within_budget=latency <= float(budget_s),
+            fleet_fingerprint=fp, event=ev,
+            refine_rounds=rounds_done, refine_moves=moves,
+            n_candidates=len(cands))
+        if commit:
+            self.dev = new_dev
+            self.gd = gd_new
+            self._fused_cache = {}
+            self._r_sum = self._r_sqsum = 0.0
+            self._r_count = 0
+            if self.hier is not None:
+                self.hier.rebind_devices(new_dev)
+                self.hier.refine_state = RefineState(a.copy(), float(t),
+                                                     rounds_done, moves)
+                # Stage II resumes at the segment level: keep the best
+                # SEGMENT candidate (the refined flat winner has no
+                # segment-level preimage)
+                self.best_assignment = seg[k]
+                self.best_time = float(ts[k])
+            else:
+                self.best_assignment = a.copy()
+                self.best_time = float(t)
+        return result
 
     # -------------------------------------------------------- evaluation
     def evaluate(self, sim_or_fn=None, n_runs: int = 10,

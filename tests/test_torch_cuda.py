@@ -33,7 +33,14 @@ handed out again across streams between runs without a wrong value;
 ``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
 and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 ``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
-bars of tests/test_kernels.py.
+bars of tests/test_kernels.py;
+the hierarchy: ``wc_trips`` bit-equal to the plain trip loop on a
+refinement round's candidates (``synthetic_layered(32, 16)``, both
+placements), a hierarchical ``place()`` and ``replace()`` on the kernel
+backends equal to the same trainer on the plain backends, one
+``wc_trips`` launch an engine call, and the fused updates after a
+committed device loss bit-identical to a fresh trainer's on the new
+fleet.
 """
 import dataclasses
 
@@ -41,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.devices import get_device_model, uniform_box
+from repro_torch.core.devices import FleetEvent, get_device_model, uniform_box
 from repro_torch.core.engine import ExecutorRewardEngine
 from repro_torch.core.executor import WCExecutor
 from repro_torch.core.gdp import GDPTrainer
@@ -53,7 +60,9 @@ from repro_torch.train.optim import AdamState
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.heuristics import (critical_path_assignment,
                                          round_robin_assignment)
-from repro_torch.core.nn import tree_leaves
+from repro_torch.core.hierarchy import HierarchyConfig, propose_moves
+from repro_torch.core.engine import RewardEngine
+from repro_torch.core.nn import tree_leaves, tree_map
 from repro_torch.core.sim_torch import (SimGraph, makespan_fifo_batch,
                                         trip_inputs)
 from repro_torch.core.training import DopplerTrainer
@@ -814,3 +823,119 @@ def test_baseline_episode_kernels_match_plain(cuda, kind):
     assert gnn_ops.pair_launches == p0
     _assert_same_update(kern, plain)
     assert kern.history == plain.history
+
+
+# ------------------------------------------------------------ the hierarchy
+HIER = HierarchyConfig(n_segments=16, refine_rounds=2, refine_top_k=12)
+
+
+def _hier_trainer(cuda, plain=False, n_layers=32, seed=0):
+    kw = dict(encoder_backend="torch", oracle_backend="torch") if plain \
+        else {}
+    return DopplerTrainer(workloads.synthetic_layered(n_layers, 16),
+                          get_device_model("v100x8"), seed=seed,
+                          device=cuda, hierarchy=HIER, **kw)
+
+
+def test_wc_trips_on_a_refine_batch_equals_plain(cuda):
+    """A refinement round's candidates (``propose_moves`` at the CP
+    assignment, top-k 24) on ``synthetic_layered(32, 16)`` x v100x8
+    (n 529), in both placements of the state."""
+    tr = _hier_trainer(cuda)
+    g = tr.flat_graph
+    cands, moves = propose_moves(g, critical_path_assignment(g, tr.dev),
+                                 24, tr.hier.exec_cost, tr.dev.n)
+    assert len(moves) > 16
+    sg = SimGraph.build(g, tr.dev, cuda)
+    args = trip_inputs(sg, torch.as_tensor(cands, device=cuda))
+    ms_r, nd_r = wc_trips_ref(sg, *args)
+    for where in ("shared", "global"):
+        ms_k, nd_k = wc_ops.wc_trips(sg, *args, where=where)
+        torch.cuda.synchronize()
+        assert torch.equal(ms_k, ms_r) and torch.equal(nd_k, nd_r)
+    assert (nd_r == sg.n_compute).all()
+
+
+def test_hierarchical_place_and_replace_match_plain(cuda):
+    """The same trainer on the kernel and on the plain backends, on the
+    card: ``place()`` (pool, V-cycle, refinement) and ``replace()`` for a
+    device loss give the same assignments and makespans; the kernel
+    trainer launches ``wc_trips`` once an engine call."""
+    class Counted(RewardEngine):
+        batched = deterministic = True
+
+        def __init__(self, inner):
+            self.inner, self.calls = inner, 0
+
+        def exec_times(self, assignments, episode=0):
+            self.calls += 1
+            return self.inner.exec_times(assignments, episode)
+
+    kern, plain = _hier_trainer(cuda), _hier_trainer(cuda, plain=True)
+    assert kern.hier.n_levels == 2 and kern.g.n < kern.flat_graph.n
+    eng = Counted(kern.flat_engine())
+    t0 = wc_ops.trip_launches
+    got = kern.place(engine=eng)
+    assert wc_ops.trip_launches - t0 == eng.calls >= 3
+    want = plain.place()
+    assert wc_ops.trip_launches - t0 == eng.calls
+    assert np.array_equal(got.assignment, want.assignment)
+    assert got.makespan == want.makespan
+    assert np.array_equal(got.makespans, want.makespans)
+    assert got.makespan <= got.makespans[-3:].min()
+    ev = FleetEvent.device_loss(3)
+    r, p = (tr.replace(ev, budget_s=1e9, commit=False) for tr in (kern,
+                                                                  plain))
+    assert np.array_equal(r.assignment, p.assignment)
+    assert (r.makespan, r.cp_makespan, r.source) == (p.makespan,
+                                                     p.cp_makespan, p.source)
+    assert r.assignment.max() < 7 and r.makespan <= r.cp_makespan
+
+
+def test_fused_updates_after_a_committed_loss(cuda):
+    """A device loss committed (8 -> 7 devices) drops the captured
+    engines; the next captured updates equal a fresh 7-device trainer's
+    from the same state, bit for bit."""
+    tr = _hier_trainer(cuda, n_layers=16)
+    tr.stage2_fused(2, batch_size=8, updates_per_dispatch=2)
+    tr.replace(FleetEvent.device_loss(3), budget_s=1e9)
+    assert tr._fused_cache == {} and tr.gd.nd == 7
+    fresh = DopplerTrainer(tr.flat_graph, tr.dev, seed=5, device=cuda,
+                           hierarchy=HIER)
+    fresh.params = tree_map(torch.clone, tr.params)
+    fresh.opt_state = AdamState(tr.opt_state.step,
+                                tree_map(torch.clone, tr.opt_state.mu),
+                                tree_map(torch.clone, tr.opt_state.nu))
+    fresh.episode = tr.episode
+    fresh.best_assignment, fresh.best_time = (tr.best_assignment.copy(),
+                                              tr.best_time)
+    fresh.generator.set_state(tr.generator.get_state())
+    want = fresh.stage2_fused(2, batch_size=8, updates_per_dispatch=2)
+    assert tr.stage2_fused(2, batch_size=8, updates_per_dispatch=2) == want
+    for x, y in zip(tree_leaves((tr.params, tr.opt_state.mu,
+                                 tr.opt_state.nu)),
+                    tree_leaves((fresh.params, fresh.opt_state.mu,
+                                 fresh.opt_state.nu))):
+        assert torch.equal(x, y)
+
+
+def test_fused_updates_are_deterministic(cuda):
+    """Two trainers from one state run the same captured updates bit for
+    bit on a graph whose predecessors carry distinct flops (the device
+    features' per-device sums must not depend on the order of atomic
+    adds)."""
+    a = _hier_trainer(cuda, n_layers=64)
+    a.stage2_fused(1, batch_size=16, updates_per_dispatch=1)
+    b = _hier_trainer(cuda, n_layers=64, seed=3)
+    b.params = tree_map(torch.clone, a.params)
+    b.opt_state = AdamState(a.opt_state.step, tree_map(torch.clone,
+                                                       a.opt_state.mu),
+                            tree_map(torch.clone, a.opt_state.nu))
+    b.episode, b._r_sum, b._r_sqsum, b._r_count = (
+        a.episode, a._r_sum, a._r_sqsum, a._r_count)
+    b.generator.set_state(a.generator.get_state())
+    assert a.stage2_fused(2, batch_size=16) == b.stage2_fused(2,
+                                                              batch_size=16)
+    for x, y in zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
+                    tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu))):
+        assert torch.equal(x, y)

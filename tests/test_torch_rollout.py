@@ -144,3 +144,29 @@ def test_generator_sampling_is_valid_and_reproducible():
     assert ((a >= 0) & (a < gd.nd)).all()
     with pytest.raises(ValueError):
         assign.rollout_batch(params, gd, 2, 0.2)      # no draws, no generator
+
+
+def test_device_features_sum_preds_in_order():
+    # the reduction vertex of synthetic_layered(2, 16) has 16 preds, so
+    # several share a device: their flops must add in pred order, as the
+    # reference's segment_sum adds them, for the features to be bit-equal
+    gj, devj, _, gdj, _, gd = _setup("synthetic_layered", (2, 16),
+                                     "v100x8", 16)
+    rng = np.random.default_rng(0)
+    n, nd, k = gj.n, devj.n, 5
+    v = np.full(k, n - 1)
+    placed = rng.random((k, n)) < 0.9
+    assigned = rng.integers(0, nd, (k, n))
+    est_end = rng.random((k, n)).astype(np.float32)
+    avail = rng.random((k, nd)).astype(np.float32)
+    comp = rng.random((k, nd)).astype(np.float32) * 1e9
+    got, _ = assign._device_features(
+        gd, torch.from_numpy(v), torch.from_numpy(placed),
+        torch.from_numpy(assigned), torch.from_numpy(est_end),
+        torch.from_numpy(avail), torch.from_numpy(comp))
+    for i in range(k):
+        want, _ = jax_assign._device_features(
+            gdj, int(v[i]), jnp.asarray(placed[i]),
+            jnp.asarray(assigned[i], jnp.int32), jnp.asarray(est_end[i]),
+            jnp.asarray(avail[i]), jnp.asarray(comp[i]))
+        assert np.array_equal(got[i].numpy(), np.asarray(want))
