@@ -193,14 +193,44 @@ Phases (any failure exits non-zero, and no result line is printed):
    latency, source and budget, a refine batch's ``wc_trips`` per-call
    and device ms, bound and scratch at both sizes, the largest gap to
    the float64 numpy ``WCSimulator`` at 4,113 (no bar), peak memory.
+12. pretraining, zero-shot serving, ``FleetTrainer`` and the training
+   CLI at the policy's published width.  12a: ``pretrain`` over the
+   synthetic half of the zoo (``zoo_pretrain_tasks(holdout=ARCH_IDS,
+   n_synthetic=4)``) and PRETRAIN_EXTRA (7 tasks), PRETRAIN_S1 imitation
+   passes and PRETRAIN_ROUNDS rounds at K PRETRAIN_K (2 ``gnn_mp`` pair
+   launches a pass, 4 an update, nothing else); its first Stage II
+   update re-run from the same state on a kernel-backend and a
+   plain-backend trainer at path 7's gate; every task's best time
+   finite; ``save_pretrained`` -> ``load_pretrained`` bit-equal.  12b: a
+   ``PlacementServer`` over those params on SERVE_CELLS (``llama_layer``,
+   which pretraining never saw, on four fleets): a miss (2 pair
+   launches, no oracle launch), a hit (no launch) and SERVE_HITS hits
+   (p50, p99); served <= min(CP seeds 0, 1) and re-scored exactly by
+   ``WCSimulator.run``; the card's ``greedy_place`` equal to the CPU's;
+   ``from_checkpoint`` serving the same assignment; one fine-tuned miss
+   (SERVE_FT_BUDGET_S) on a fresh server at most the zero-shot makespan.
+   12c: ``FleetTrainer`` on FLEET_BLOCKS (episodes and stages checked).
+   12d: ``doppler_train.main`` in this process for each of CLI_RUNS
+   (executor + calibration + fused engine + trace, a resume on the
+   oracle, Stage II under the supervisor with a device loss, a
+   hierarchical run): a checkpoint after every stage that ran, the
+   resume at run 1's final episode, the trace one event a compute
+   vertex, one recovery and a 3-device fleet with no vertex on the lost
+   device.  Prints seconds an imitation pass and an update by phase,
+   the miss split (greedy, CP, scoring), hit percentiles, the CLI's own
+   lines, each run's trainer seconds and the executor's wall and host
+   dispatch ms.  The pair must launch in 12a, 12b and 12d and
+   ``wc_trips`` in 12d; no single-direction ``gnn_mp`` or ``wc_step``.
    On each path the launch counts are reset just before it is driven and
    read just after (checks against plain versions and timings excluded);
    every Pallas kernel must have a port that launched on its path.
-12. prints the ``kernels`` JSON line and, last, the result line.
+13. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -216,7 +246,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core.assign import build_graph_data, encode  # noqa: E402
 from repro_torch.core.calibrate import (calibrate_fleet,  # noqa: E402
                                         executor_measure)
@@ -237,13 +267,18 @@ from repro_torch.core.hierarchy import (ExpandingEngine,  # noqa: E402
 from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.placeto import PlacetoTrainer  # noqa: E402
 from repro_torch.core.policy_io import (load_policy,  # noqa: E402
-                                        save_policy)
+                                        load_pretrained, save_policy,
+                                        save_pretrained)
 from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, makespan_fifo_batch,
                                         trip_inputs)
 from repro_torch.core.simulator import WCSimulator  # noqa: E402
 from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
-                                       _pg_loss_and_grad_batch)
+                                       FleetTrainer, PretrainTask,
+                                       _pg_loss_and_grad_batch, pretrain,
+                                       zoo_pretrain_tasks)
+from repro_torch.core.zero_shot import (greedy_place,  # noqa: E402
+                                        to_numpy_params)
 from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
                                           list_workloads, synthetic_layered)
 from repro_torch.kernels import _build  # noqa: E402
@@ -259,6 +294,8 @@ from repro_torch.kernels.mamba2_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
 from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
                                                wc_trips_ref)
+from repro_torch.launch import doppler_train  # noqa: E402
+from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
                                       prompt_tokens)
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
@@ -351,6 +388,39 @@ HIER_S1, HIER_S2, HIER_K, HIER_AFTER = 16, 16, 16, 2
 HIER_EVENTS = (FleetEvent.device_loss(3), FleetEvent.straggler_onset(0, 0.5),
                FleetEvent.link_degradation(1, factor=0.25))
 HIER_BUDGET_S = 5.0
+# path 12 at the policy's published width: pretraining over the synthetic
+# half of the zoo (zoo_pretrain_tasks(holdout=ARCH_IDS, n_synthetic=4))
+# plus PRETRAIN_EXTRA, PRETRAIN_ROUNDS rounds (the reference's default is
+# 4: the depth cut) at K PRETRAIN_K after PRETRAIN_S1 imitation passes;
+# the zero-shot server on SERVE_CELLS (llama_layer, which pretraining
+# never saw), SERVE_HITS hits a cell and one fine-tuned miss;
+# FleetTrainer on FLEET_BLOCKS; the training CLI's CLI_RUNS
+PRETRAIN_EXTRA = (("chainmm", "mixed_gen4"), ("ffnn", "two_pod_2x2"),
+                  ("llama_block", "straggler8"))
+PRETRAIN_ROUNDS, PRETRAIN_K, PRETRAIN_S1 = 2, 8, 2
+PRETRAIN_DIR = ROOT / "build" / "chip_smoke_pretrained"
+SERVE_CELLS = tuple(("llama_layer", f) for f in ("mixed_gen4", "two_pod_2x2",
+                                                 "straggler8", "v100x8"))
+SERVE_HITS, SERVE_FT_BUDGET_S = 200, 3.0
+FLEET_BLOCKS, FLEET_FLEET, FLEET_REPLICAS = ("llama_block", "ffnn"), \
+    "v100x8", 8
+FLEET_EPISODES, FLEET_K = 16, 8
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_RUNS = (
+    ["--graph", "llama_layer", "--devices", "v100x8", "--stage1", "16",
+     "--stage2", "16", "--stage2-batch", "16", "--engine", "fused",
+     "--stage3", "2", "--stage3-batch", "8", "--system", "executor",
+     "--calibrate", "--flops-scale", "1", "--bytes-scale", "1",
+     "--ckpt-dir", str(CLI_DIR), "--trace", str(CLI_DIR / "trace.json")],
+    ["--graph", "llama_layer", "--devices", "v100x8", "--stage2-batch", "16",
+     "--ckpt-dir", str(CLI_DIR), "--resume", "--stage1", "0", "--stage2",
+     "4", "--engine", "oracle", "--stage3", "0"],
+    ["--graph", "llama_block", "--devices", "mixed_gen4", "--stage1", "4",
+     "--stage2", "8", "--stage2-batch", "8", "--engine", "batched",
+     "--stage3", "0", "--events", "3:loss:1"],
+    ["--graph", "llama_layer", "--devices", "v100x8", "--hierarchy", "16",
+     "--stage1", "4", "--stage2", "4", "--engine", "fused", "--stage3",
+     "0"])
 # the card's name and power limit, as nvidia-smi gives them (set by main)
 CARD = ""
 
@@ -2777,6 +2847,346 @@ def hier_path(dev) -> dict:
             "peak_gb": (train_peak, big_peak)}
 
 
+# ------------------------------------------------------------- path 12
+class _Recording:
+    """Within the block, every ``stage1_imitation`` pass and
+    ``_batched_rl_update`` of any ``DopplerTrainer`` is recorded: its
+    trainer, wall seconds, phase seconds and kernel launches (the
+    pretraining loop builds its trainers itself); the first Stage II
+    update also keeps the state it started from (params, AdamW state,
+    generator, counters) and its reward engine."""
+
+    def __init__(self):
+        self.stage1, self.stage2, self.first = [], [], None
+
+    def __enter__(self):
+        self._orig = (DopplerTrainer.stage1_imitation,
+                      DopplerTrainer._batched_rl_update)
+        s1, s2 = self._orig
+        rec = self
+
+        def timed(log, fn, tr, *a, **k):
+            c0, p0 = _launch_counts(), dict(tr.seconds)
+            t0 = time.perf_counter()
+            out = fn(tr, *a, **k)
+            sync(tr.device)
+            log.append({"trainer": tr, "s": time.perf_counter() - t0,
+                        "phases": {p: v - p0.get(p, 0.0)
+                                   for p, v in tr.seconds.items()
+                                   if v != p0.get(p)},
+                        "launches": {n: v - c0[n]
+                                     for n, v in _launch_counts().items()}})
+            return out
+
+        def stage1(tr, *a, **k):
+            return timed(rec.stage1, s1, tr, *a, **k)
+
+        def stage2(tr, reward, *a, **k):
+            first = rec.first is None
+            if first:
+                rec.first = SimpleNamespace(
+                    params=tree_map(torch.clone, tr.params),
+                    opt_state=AdamState(
+                        tr.opt_state.step,
+                        tree_map(torch.clone, tr.opt_state.mu),
+                        tree_map(torch.clone, tr.opt_state.nu)),
+                    generator=torch.Generator(tr.device),
+                    episode=tr.episode, _r_sum=tr._r_sum,
+                    _r_sqsum=tr._r_sqsum, _r_count=tr._r_count,
+                    reward=reward, trainer=tr)
+                rec.first.generator.set_state(tr.generator.get_state())
+            out = timed(rec.stage2, s2, tr, reward, *a, **k)
+            if first:
+                rec.first.update = dict(tr.last_update)
+            return out
+
+        DopplerTrainer.stage1_imitation = stage1
+        DopplerTrainer._batched_rl_update = stage2
+        return self
+
+    def __exit__(self, *exc):
+        DopplerTrainer.stage1_imitation, DopplerTrainer._batched_rl_update = \
+            self._orig
+        return False
+
+
+def _phase_means(log) -> dict:
+    keys = sorted({p for r in log for p in r["phases"]})
+    return {p: sum(r["phases"].get(p, 0.0) for r in log) / len(log)
+            for p in keys}
+
+
+def pretrain_path(dev) -> dict:
+    """12a: ``pretrain`` at the policy's published width over
+    PRETRAIN_TASKS, its first Stage II update re-run on a kernel-backend
+    and a plain-backend twin from the same state (path 4's gate), every
+    task's best time finite, and the result saved and loaded bit-equal."""
+    tasks = zoo_pretrain_tasks(holdout=ARCH_IDS, n_synthetic=4, seed=0)
+    tasks += [PretrainTask(f"{g}|{f}", get_workload(g), get_device_model(f))
+              for g, f in PRETRAIN_EXTRA]
+    t0 = time.perf_counter()
+    with _Recording() as rec:
+        pre = pretrain(tasks, rounds=PRETRAIN_ROUNDS, batch_size=PRETRAIN_K,
+                       imitation_episodes=PRETRAIN_S1, device=dev)
+    wall = time.perf_counter() - t0
+    check(len(rec.stage1) == PRETRAIN_S1 * len(tasks)
+          and len(rec.stage2) == PRETRAIN_ROUNDS * len(tasks),
+          f"pretrain ran {len(rec.stage1)} imitation passes and "
+          f"{len(rec.stage2)} updates")
+    best = {k: v["best_time"] for k, v in pre["per_task"].items()}
+    check(all(np.isfinite(t) for t in best.values()),
+          f"every task's best time is finite: {best}")
+    check(all(r["launches"]["gnn_mp_pair"] == 2 for r in rec.stage1)
+          and all(r["launches"]["gnn_mp_pair"] == 4 for r in rec.stage2)
+          and all(r["launches"][k] == 0 for r in rec.stage1 + rec.stage2
+                  for k in ("gnn_mp", "wc_oracle", "wc_oracle_trips")),
+          "the gnn_mp pair twice an imitation pass (the replay) and 4 times "
+          "an update (sample + replay), nothing else")
+
+    # the first Stage II update again, kernel against plain backends
+    first = rec.first
+    src = first.trainer
+
+    def twin(backend):
+        tr = DopplerTrainer(src.g, src.dev, seed=0, d_hidden=64,
+                            lr0=3e-3, lr1=1e-5,
+                            total_episodes=src.total_episodes, device=dev,
+                            encoder_backend=backend)
+        _copy_state(first, tr)
+        tr._batched_rl_update(first.reward, PRETRAIN_K, "pretrain")
+        return tr
+
+    kern, plain = _uncounted(lambda: (twin("cuda"), twin("torch")))
+    check(np.array_equal(kern.last_update["rewards"],
+                         first.update["rewards"])
+          and torch.equal(kern.last_update["actions"],
+                          first.update["actions"]),
+          "the re-run first update is pretrain's (actions, rewards)")
+    gate_update(f"pretrain first update ({pre['meta']['tasks'][0]})",
+                kern, plain)
+
+    # save_pretrained -> load_pretrained on the card, bit-equal
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_pretrained(PRETRAIN_DIR, pre)
+    t1 = time.perf_counter()
+    back = load_pretrained(PRETRAIN_DIR, device=dev)
+    t2 = time.perf_counter()
+    check(back["meta"] == pre["meta"] and all(
+        a.device == b.device and torch.equal(a, b) for a, b in zip(
+            tree_leaves(back["params"]), tree_leaves(pre["params"]))),
+          "save_pretrained -> load_pretrained on the card is bit-equal")
+
+    s1, s2 = _phase_means(rec.stage1), _phase_means(rec.stage2)
+    print(f"pretrain ({CARD}): {len(tasks)} tasks "
+          f"{[(t.name, t.graph.n) for t in tasks]}, {PRETRAIN_S1} imitation "
+          f"passes + {PRETRAIN_ROUNDS} rounds at K {PRETRAIN_K}: wall "
+          f"{wall:.6f} s; s an imitation pass "
+          f"{np.mean([r['s'] for r in rec.stage1]):.6f} by phase "
+          + json.dumps({k: round(v, 6) for k, v in s1.items()})
+          + f"; s an update {np.mean([r['s'] for r in rec.stage2]):.6f} by "
+          f"phase " + json.dumps({k: round(v, 6) for k, v in s2.items()})
+          + f"; pair launches an update 4, an imitation pass 2; best ms "
+          + json.dumps({k: round(v * 1e3, 6) for k, v in best.items()})
+          + f"; save {t1 - t0:.6f} s, load {t2 - t1:.6f} s")
+    return {"pre": pre, "tasks": tasks, "wall_s": wall}
+
+
+def serve_zero_shot_path(dev, pre) -> dict:
+    """12b: a ``PlacementServer`` over 12a's params on SERVE_CELLS (a graph
+    pretraining never saw): a miss (2 pair launches, no oracle launch),
+    a hit (no launch), SERVE_HITS hits for p50 / p99; served <= CP and
+    re-scored exactly; the card's greedy equal to the CPU's; a server
+    from the checkpoint; one fine-tuned miss on a fresh server."""
+    server = PlacementServer(pre["params"], meta=pre["meta"], device=dev)
+    cpu_params = to_numpy_params(pre["params"])
+    res, served = {"cells": []}, []
+    for gname, fleet in SERVE_CELLS:
+        g, fm = get_workload(gname), get_device_model(fleet)
+        miss, c_miss = _counted(lambda: server.place(g, fm))
+        check(not miss.cache_hit and c_miss["gnn_mp_pair"] == 2
+              and c_miss["wc_oracle_trips"] == c_miss["gnn_mp"]
+              == c_miss["wc_oracle"] == 0,
+              f"{gname} x {fleet}: a miss is 2 pair launches: {c_miss}")
+        hit, c_hit = _counted(lambda: server.place(g, fm))
+        check(hit.cache_hit and not any(c_hit.values())
+              and np.array_equal(hit.assignment, miss.assignment),
+              f"{gname} x {fleet}: a hit launches nothing: {c_hit}")
+        lat = [server.place(g, fm).latency_s for _ in range(SERVE_HITS)]
+        sim = WCSimulator(g, fm, choose="fifo", noise_sigma=0.0)
+        cp = min(sim.run(critical_path_assignment(g, fm, seed=s)).makespan
+                 for s in range(2))
+        again = sim.run(miss.assignment).makespan
+        check(miss.makespan <= cp * (1 + 1e-9) and again == miss.makespan,
+              f"{gname} x {fleet}: served {miss.makespan} <= CP {cp}, "
+              f"re-scored {again}")
+        cpu_greedy = _uncounted(lambda: greedy_place(cpu_params, g, fm,
+                                                     device="cpu"))
+        card_greedy = _uncounted(lambda: greedy_place(pre["params"], g, fm,
+                                                      device=dev))
+        check(np.array_equal(cpu_greedy, card_greedy),
+              f"{gname} x {fleet}: the card's greedy equals the CPU's")
+        served.append(miss.assignment)
+        cell = {"cell": f"{gname}|{fleet}", "makespan": miss.makespan,
+                "cp": cp, "source": miss.source, "seconds": miss.seconds,
+                "latency_s": miss.latency_s,
+                "hit_p50_s": float(np.percentile(lat, 50)),
+                "hit_p99_s": float(np.percentile(lat, 99))}
+        res["cells"].append(cell)
+        print(f"serve zero-shot {gname} x {fleet} ({CARD}): miss "
+              f"{miss.latency_s:.6f} s = greedy "
+              f"{miss.seconds['greedy']:.6f} + CP {miss.seconds['cp']:.6f} "
+              f"+ scoring {miss.seconds['scoring']:.6f}; hit p50 "
+              f"{cell['hit_p50_s'] * 1e6:.3f} us p99 "
+              f"{cell['hit_p99_s'] * 1e6:.3f} us ({SERVE_HITS} hits); "
+              f"served {miss.makespan * 1e3:.6f} ms ({miss.source}), CP "
+              f"{cp * 1e3:.6f} ms; greedy equal to the CPU's")
+    gname, fleet = SERVE_CELLS[0]
+    g, fm = get_workload(gname), get_device_model(fleet)
+    from_ckpt = PlacementServer.from_checkpoint(PRETRAIN_DIR, device=dev)
+    check(np.array_equal(from_ckpt.place(g, fm).assignment, served[0]),
+          "from_checkpoint serves the same assignment")
+    fresh = PlacementServer(pre["params"], meta=pre["meta"], device=dev)
+    ft = fresh.place(g, fm, fine_tune_budget_s=SERVE_FT_BUDGET_S)
+    check(ft.makespan <= res["cells"][0]["makespan"]
+          and ft.fine_tune_updates >= 1,
+          f"the fine-tuned miss serves {ft.makespan} <= the zero-shot "
+          f"{res['cells'][0]['makespan']}")
+    print(f"serve fine-tune {gname} x {fleet} ({CARD}): budget "
+          f"{SERVE_FT_BUDGET_S} s, {ft.fine_tune_updates} updates at K 8, "
+          f"miss {ft.latency_s:.6f} s (fine-tune "
+          f"{ft.seconds['fine_tune']:.6f}), served {ft.makespan * 1e3:.6f} "
+          f"ms from {ft.source}; from_checkpoint served the same "
+          f"assignment")
+    res["fine_tune"] = {"updates": ft.fine_tune_updates,
+                        "makespan": ft.makespan, "source": ft.source}
+    return res
+
+
+def fleet_path(dev) -> dict:
+    """12c: ``FleetTrainer`` (App. I) on FLEET_BLOCKS x FLEET_FLEET, every
+    block's reward the mean of FLEET_REPLICAS replicas."""
+    fm = get_device_model(FLEET_FLEET)
+    t0 = time.perf_counter()
+    ft = FleetTrainer({b: get_workload(b) for b in FLEET_BLOCKS}, fm,
+                      n_replicas=FLEET_REPLICAS, device=dev)
+    ft.train(FLEET_EPISODES, batch_size=FLEET_K)
+    wall = time.perf_counter() - t0
+    for name, tr in ft.trainers.items():
+        check(tr.episode == FLEET_EPISODES
+              and [h.stage for h in tr.history] == ["fleet"] * (
+                  FLEET_EPISODES // FLEET_K),
+              f"FleetTrainer {name}: episode {tr.episode}, stages "
+              f"{[h.stage for h in tr.history]}")
+    best = {n: a is not None for n, a in ft.assignments().items()}
+    check(all(best.values()), f"every block has an assignment: {best}")
+    print(f"fleet trainer ({CARD}): {list(FLEET_BLOCKS)} on {FLEET_FLEET}, "
+          f"{FLEET_REPLICAS} replicas, {FLEET_EPISODES} episodes at K "
+          f"{FLEET_K}: {wall:.6f} s; best ms "
+          + json.dumps({n: round(t.best_time * 1e3, 6)
+                        for n, t in ft.trainers.items()}))
+    return {"wall_s": wall}
+
+
+def _cli(argv) -> tuple[dict, list, float]:
+    """``doppler_train.main(argv)`` in this process; its output is printed
+    as it comes and kept.  -> (its result, its lines, wall seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = doppler_train.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    return out, lines, wall
+
+
+def cli_path(dev) -> dict:
+    """12d: the training CLI in this process, four runs (CLI_RUNS): the
+    pipeline with the executor and calibration, a resume on the oracle,
+    Stage II under the supervisor with a device loss, a hierarchical
+    run."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    res = {}
+    for i, argv in enumerate(CLI_RUNS, 1):
+        argv = argv + ["--device", str(dev)]
+        print(f"cli run {i}: python -m repro_torch.launch.doppler_train "
+              + " ".join(argv))
+        out, lines, wall = _cli(argv)
+        tr = out["trainer"]
+        res[i] = {"out": out, "lines": lines, "wall_s": wall,
+                  "seconds": dict(tr.seconds), "episode": tr.episode}
+        check(any(l.startswith("DOPPLER best: ") for l in lines)
+              and np.isfinite(out["best"][0]),
+              f"cli run {i} evaluated its best assignment")
+        print(f"cli run {i} ({CARD}): wall {wall:.6f} s; trainer seconds "
+              + json.dumps({k: round(v, 6) for k, v in tr.seconds.items()})
+              + f"; episode {tr.episode}")
+
+    def saved(lines):
+        return [l.split("]")[0][1:] for l in lines
+                if "] checkpoint saved: " in l]
+
+    check(saved(res[1]["lines"]) == ["stage1", "stage2", "stage3"]
+          and saved(res[2]["lines"]) == ["stage2"],
+          f"a checkpoint after every stage that ran: "
+          f"{saved(res[1]['lines'])}, {saved(res[2]['lines'])}")
+    resumed = [l for l in res[2]["lines"] if l.startswith("resumed at ")]
+    check(resumed == [f"resumed at episode {res[1]['episode']}"],
+          f"run 2 {resumed} at run 1's final episode {res[1]['episode']}")
+    g = get_workload("llama_layer")
+    events = json.loads((CLI_DIR / "trace.json").read_text())["traceEvents"]
+    n_exec = sum(e["ph"] == "X" and e["pid"] == 0 for e in events)
+    check(n_exec == g.n - int(g.input_mask().sum()),
+          f"the trace parses with one event a compute vertex: {n_exec}")
+    ex = res[1]["out"]["executor"]
+    mean, std = res[1]["out"]["best"]
+    print(f"cli run 1 executor ({CARD}): evaluated best wall "
+          f"{mean * 1e3:.6f} +- {std * 1e3:.6f} ms (10 runs), last run's "
+          f"host dispatch {ex.last_dispatch_s * 1e3:.6f} ms")
+    tr3 = res[3]["out"]["trainer"]
+    sup = [l for l in res[3]["lines"] if l.startswith("stage II : ")]
+    check(len(sup) == 1 and " 1 recoveries, " in sup[0]
+          and tr3.dev.n == 3 and int(tr3.best_assignment.max()) < 3,
+          f"run 3: one recovery, the fleet at 3 devices, no vertex on the "
+          f"lost one: {sup}, {tr3.dev.n}")
+    return res
+
+
+def path12(dev, by_name) -> None:
+    """Path 12: pretraining, zero-shot serving, FleetTrainer and the
+    training CLI on the card; the launch counts are reset before each
+    part and read after it."""
+    t_path, counts = time.perf_counter(), {}
+
+    def part(name, fn):
+        gnn_ops.launches = gnn_ops.pair_launches = 0
+        wc_ops.launches = wc_ops.trip_launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        counts[name] = _launch_counts()
+        print(f"path {name} wall s: {time.perf_counter() - t0:.3f}; "
+              f"launches {counts[name]}")
+        return out
+
+    pre = part("12a", lambda: pretrain_path(dev))
+    part("12b", lambda: serve_zero_shot_path(dev, pre["pre"]))
+    part("12c", lambda: fleet_path(dev))
+    part("12d", lambda: cli_path(dev))
+    check(all(counts[p]["gnn_mp_pair"] > 0 for p in ("12a", "12b", "12d"))
+          and counts["12d"]["wc_oracle_trips"] > 0
+          and all(c["gnn_mp"] == c["wc_oracle"] == 0
+                  for c in counts.values()),
+          f"path 12 ran the gnn_mp pair (12a, 12b, 12d) and wc_trips (12d), "
+          f"no single-direction gnn_mp and no wc_step: {counts}")
+    print(f"path 12 wall s: {time.perf_counter() - t_path:.3f}")
+    by_name["gnn_mp_pair"]["pretrain_serve_cli"] = {
+        p: c["gnn_mp_pair"] for p, c in counts.items()}
+    by_name["wc_oracle_trips"]["pretrain_serve_cli"] = {
+        p: c["wc_oracle_trips"] for p, c in counts.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2941,6 +3351,11 @@ def main() -> int:
         "plain_checked_rows_n529": hier["check_rows"],
         "numpy_gap_n4113": hier["train"]["numpy_gap"]}
     del hier
+
+    # path 12: pretraining, zero-shot serving, FleetTrainer and the
+    # training CLI (gnn_mp's pair in all but FleetTrainer's numpy rewards'
+    # scoring; wc_trips in the CLI's oracle and fused engines)
+    path12(dev, by_name)
 
     ported = {}
     for name, k in by_name.items():

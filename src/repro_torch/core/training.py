@@ -35,8 +35,13 @@ every stage above runs unchanged on the top segment graph; ``place()``
 expands a pool of segment candidates, descends the V-cycle and refines
 on the flat graph, every flat batch one oracle launch.  ``replace()``
 re-places after a ``FleetEvent`` (device loss, straggler, link
-degradation) under a wall-clock budget.  Not in this package yet:
-pretraining and ``FleetTrainer``.
+degradation) under a wall-clock budget.
+
+Around the trained policy: ``transfer`` (few-shot, Table 4),
+``pretrain`` (one parameter set round-robined over many graph x fleet
+tasks, for zero-shot serving by ``launch/place_server.py``) and
+``FleetTrainer`` (App. I: one policy per repeated block, rewards the
+mean over replicas).
 """
 from __future__ import annotations
 
@@ -987,3 +992,204 @@ class DopplerTrainer:
         eng = self.default_engine() if sim_or_fn is None else sim_or_fn
         ts = as_engine(eng).evaluate_repeats(a, n_runs)
         return float(np.mean(ts)), float(np.std(ts)), a
+
+
+# --------------------------------------------------------------- transfer
+def transfer(trainer: DopplerTrainer, target_graph: DataflowGraph,
+             dev: DeviceModel, **kwargs) -> DopplerTrainer:
+    """Few-shot transfer (Table 4 / App. J): a new trainer on the target
+    graph and fleet (``kwargs`` as :class:`DopplerTrainer`'s, ``device``
+    among them) with the source's params and a fresh AdamW state; the
+    caller then runs k-shot episodes."""
+    new = DopplerTrainer(target_graph, dev, **kwargs)
+    new.params = tree_map(lambda x: x.to(new.device), trainer.params)
+    new.opt_state = adamw_init(new.params)
+    return new
+
+
+# ---------------------------------------------------------------- pretrain
+@dataclasses.dataclass
+class PretrainTask:
+    """One (graph, fleet) cell of the cross-graph pretraining zoo."""
+    name: str
+    graph: DataflowGraph
+    dev: DeviceModel
+    noise_sigma: float = 0.0
+
+
+def zoo_pretrain_tasks(archs: Sequence[str] | None = None,
+                       fleets: Sequence[str] | None = None,
+                       holdout: Sequence[str] = (),
+                       seq: int = 32, n_synthetic: int = 2,
+                       seed: int = 0) -> list[PretrainTask]:
+    """The pretraining zoo: every (non-held-out) registry architecture's
+    block graph paired round-robin with a heterogeneous fleet, plus
+    synthetic augmentation (``synthetic_layered`` DAGs and the sharded
+    ``ffnn`` at randomized grids, drawn from ``default_rng(seed)`` as the
+    reference draws them).  ``archs`` empty or None means every
+    architecture; ``holdout`` architectures are excluded end to end (the
+    zero-shot evaluation set).  The architectures' ``model:`` graphs need
+    the model importer (ROADMAP A11.5) and raise through ``get_workload``:
+    ``holdout=ARCH_IDS`` gives the synthetic half alone."""
+    from ..configs.registry import ARCH_IDS
+    from ..graphs.workloads import get_workload, synthetic_layered
+    from .devices import HETERO_FLEETS, get_device_model
+    fleets = tuple(fleets or HETERO_FLEETS)
+    archs = [a for a in (archs or ARCH_IDS) if a not in set(holdout)]
+    tasks = []
+    for i, arch in enumerate(archs):
+        fleet = fleets[i % len(fleets)]
+        tasks.append(PretrainTask(
+            f"{arch}|{fleet}", get_workload(f"model:{arch}", seq=seq),
+            get_device_model(fleet)))
+    rng = np.random.default_rng(seed)
+    for j in range(n_synthetic):
+        if j % 2 == 0:
+            g = synthetic_layered(int(rng.integers(4, 9)),
+                                  int(rng.integers(6, 13)),
+                                  seed=seed + 17 * j)
+        else:           # tiled: the sharded decomposer at a random grid
+            g = get_workload("ffnn", batch_log2=int(rng.integers(8, 11)),
+                             hidden_log2=int(rng.integers(8, 11)),
+                             grid=int(rng.integers(2, 4)))
+        fleet = fleets[(len(archs) + j) % len(fleets)]
+        tasks.append(PretrainTask(f"synth{j}|{g.name}|{fleet}", g,
+                                  get_device_model(fleet)))
+    return tasks
+
+
+def pretrain(tasks: Sequence[PretrainTask], seed: int = 0,
+             rounds: int = 4, batch_size: int = 8,
+             imitation_episodes: int = 2,
+             d_hidden: int = 64, d_z: int = 32, d_y: int = 32,
+             gnn_layers: int = 2,
+             lr0: float = 3e-3, lr1: float = 1e-5,
+             eps0: float = 0.2, eps1: float = 0.0,
+             entropy_weight: float = 1e-2, normalize_adv: bool = True,
+             sim_engine: str = "batched", log_every: int = 0,
+             device: str | torch.device = "cuda",
+             draws: Sequence | None = None) -> dict:
+    """Train ONE dual-policy parameter set across many graph x fleet
+    tasks (GDP/Placeto-style cross-graph generalization).
+
+    The policy's shapes do not depend on the graph or the fleet, so one
+    ``(params, opt_state)`` pair round-robins over one
+    :class:`DopplerTrainer` per task (seed ``seed + i``, on ``device``):
+    ``imitation_episodes`` CP-imitation passes, then per round one
+    batched REINFORCE update per task against the numpy
+    ``WCSimulator(noise_sigma=task.noise_sigma)`` (float64 rewards, as
+    the reference).  Each task keeps its OWN reward statistics:
+    makespans differ by orders of magnitude across graphs.  ``draws[i][r]``
+    holds the injected tables of task i's update in round r (None: each
+    trainer's generator).
+
+    Returns ``{"params", "meta", "per_task"}``; feed ``params`` to
+    :class:`~repro_torch.launch.place_server.PlacementServer` (or
+    ``policy_io.save_pretrained``) for zero-shot serving."""
+    if not tasks:
+        raise ValueError("pretrain needs at least one task")
+    total = imitation_episodes + rounds * batch_size
+    trainers, engines = [], []
+    for i, t in enumerate(tasks):
+        trainers.append(DopplerTrainer(
+            t.graph, t.dev, seed=seed + i, d_hidden=d_hidden,
+            gnn_layers=gnn_layers, lr0=lr0, lr1=lr1, eps0=eps0, eps1=eps1,
+            entropy_weight=entropy_weight, normalize_adv=normalize_adv,
+            total_episodes=max(total, 1), device=device))
+        engines.append(SimRewardEngine(
+            WCSimulator(t.graph, t.dev, choose="fifo",
+                        noise_sigma=t.noise_sigma),
+            sim_engine=sim_engine))
+    params = tree_map(lambda x: x.to(trainers[0].device), init_policies(
+        torch.Generator().manual_seed(seed), d_hidden=d_hidden, d_z=d_z,
+        d_y=d_y, gnn_layers=gnn_layers))
+    opt_state = adamw_init(params)
+
+    # Stage I warm start, round-robin so no task dominates the schedule
+    for ep in range(imitation_episodes):
+        for tr in trainers:
+            tr.params, tr.opt_state = params, opt_state
+            tr.stage1_imitation(1, seed=seed + ep)
+            params, opt_state = tr.params, tr.opt_state
+    # Stage II: one batched update per task per round on shared params
+    for rnd in range(rounds):
+        for i, (t, tr, eng) in enumerate(zip(tasks, trainers, engines)):
+            tr.params, tr.opt_state = params, opt_state
+            ts = tr._batched_rl_update(
+                eng, batch_size, "pretrain",
+                draws=None if draws is None else draws[i][rnd])
+            params, opt_state = tr.params, tr.opt_state
+            if log_every and (rnd + 1) % log_every == 0:
+                print(f"[pretrain] round {rnd+1}/{rounds} {t.name}: "
+                      f"mean={ts.mean()*1e3:.2f}ms "
+                      f"best={tr.best_time*1e3:.2f}ms")
+    meta = {"d_hidden": d_hidden, "d_z": d_z, "d_y": d_y,
+            "gnn_layers": gnn_layers, "seed": seed, "rounds": rounds,
+            "batch_size": batch_size,
+            "imitation_episodes": imitation_episodes,
+            "tasks": [t.name for t in tasks]}
+    per_task = {t.name: {"best_time": float(tr.best_time)}
+                for t, tr in zip(tasks, trainers)}
+    return {"params": params, "meta": meta, "per_task": per_task}
+
+
+# ------------------------------------------------------------------ fleet
+class FleetTrainer:
+    """Appendix I: at 1000+-node scale the dataflow graph of each
+    *repeated* block is assigned once and replicated across every
+    data-parallel replica of a uniform fleet.  Each unique block graph
+    gets its own :class:`DopplerTrainer` (``trainer_kwargs``, ``device``
+    among them); an episode's reward is the mean over the replicas,
+    simulated here as independently seeded noisy WC runs."""
+
+    def __init__(self, block_graphs: dict[str, DataflowGraph],
+                 dev: DeviceModel, n_replicas: int = 8, seed: int = 0,
+                 noise_sigma: float = 0.1, **trainer_kwargs):
+        self.n_replicas = n_replicas
+        self.trainers = {
+            name: DopplerTrainer(g, dev, seed=seed + i, **trainer_kwargs)
+            for i, (name, g) in enumerate(block_graphs.items())}
+        self.sims = {name: WCSimulator(g, dev, choose="fifo",
+                                       noise_sigma=noise_sigma)
+                     for name, g in block_graphs.items()}
+
+    def fleet_exec_time(self, name: str, assignment, episode: int,
+                        sim_engine: str = "batched") -> float:
+        """Mean exec time of the replicated assignment across the fleet:
+        one batched K=1 x S=n_replicas sweep."""
+        sim = self.sims[name]
+        seeds = [episode * self.n_replicas + r for r in range(self.n_replicas)]
+        ts = sim.run_batch(assignment, seeds=seeds, engine=sim_engine)[0]
+        return float(np.mean(ts))
+
+    def train(self, n_episodes: int, log_every: int = 0,
+              batch_size: int = 8, draws: dict | None = None):
+        """Train every block policy for ``n_episodes`` episodes, one
+        batch-averaged REINFORCE update per ``batch_size`` episodes (the
+        last update takes the remainder), each member scored as the mean
+        of its replicas' runs.  ``draws[name][u]`` holds the injected
+        tables of block ``name``'s update u (None: the generator)."""
+        for name, tr in self.trainers.items():
+            sim = self.sims[name]
+
+            def fleet_rewards(assigns: np.ndarray) -> np.ndarray:
+                # row k plays the episode counter the serial path would
+                # have used, so replica seeds line up with fleet_exec_time
+                return np.array([
+                    sim.run_batch(
+                        a, seeds=[(tr.episode + k) * self.n_replicas + r
+                                  for r in range(self.n_replicas)])[0].mean()
+                    for k, a in enumerate(assigns)])
+
+            remaining, u = n_episodes, 0
+            while remaining > 0:
+                b = min(batch_size, remaining)
+                tr._batched_rl_update(
+                    fleet_rewards, b, "fleet",
+                    draws=None if draws is None else draws[name][u])
+                remaining, u = remaining - b, u + 1
+            if log_every:
+                print(f"[fleet] {name}: best={tr.best_time*1e3:.2f}ms")
+
+    def assignments(self) -> dict[str, np.ndarray]:
+        return {n: t.best_assignment for n, t in self.trainers.items()}

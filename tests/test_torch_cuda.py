@@ -939,3 +939,82 @@ def test_fused_updates_are_deterministic(cuda):
     for x, y in zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
                     tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu))):
         assert torch.equal(x, y)
+
+
+# ------------------------------------- pretraining and zero-shot serving
+def _cpu_params(seed=3):
+    from repro_torch.core.policies import init_policies
+    return init_policies(torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("gname,fleet", [("llama_block", "mixed_gen4"),
+                                         ("ffnn", "two_pod_2x2")])
+def test_greedy_place_on_the_card_equals_the_cpu(cuda, gname, fleet):
+    from repro_torch.core.zero_shot import greedy_place
+    g, fm = workloads.get_workload(gname), get_device_model(fleet)
+    params = _cpu_params()
+    p0 = gnn_ops.pair_launches
+    got = greedy_place(params, g, fm, device=cuda)
+    assert gnn_ops.pair_launches - p0 == 2          # one a GNN layer
+    assert np.array_equal(got, greedy_place(params, g, fm, device="cpu"))
+
+
+def test_server_miss_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.launch.place_server import PlacementServer
+    g, fm = workloads.get_workload("llama_block"), get_device_model(
+        "straggler8")
+    params = _cpu_params()
+    srv = PlacementServer(params, device=cuda)
+    p0, t0 = gnn_ops.pair_launches, wc_ops.trip_launches
+    got = srv.place(g, fm)
+    assert (gnn_ops.pair_launches - p0, wc_ops.trip_launches - t0) == (2, 0)
+    p0 = gnn_ops.pair_launches
+    assert srv.place(g, fm).cache_hit and gnn_ops.pair_launches == p0
+    want = PlacementServer(params, device="cpu").place(g, fm)
+    assert np.array_equal(got.assignment, want.assignment)
+    assert (got.makespan, got.source) == (want.makespan, want.source)
+
+
+def test_pretrain_first_update_on_the_card_matches_plain(cuda):
+    """``pretrain`` on the card (its trainers on the kernel backends); its
+    first Stage II update re-run from the same state and generator on a
+    kernel-backend and a plain-backend trainer: the update itself and the
+    two twins at the training gate."""
+    from repro_torch.core import training
+    tasks = [training.PretrainTask("ffnn|p100x4", workloads.ffnn(),
+                                   get_device_model("p100x4"))]
+    first = {}
+    orig = DopplerTrainer._batched_rl_update
+
+    def update(tr, reward, batch_size, stage, **k):
+        if not first:
+            first.update(state=(tree_map(torch.clone, tr.params),
+                                tr.opt_state, tr.generator.get_state(),
+                                tr.episode), reward=reward)
+            out = orig(tr, reward, batch_size, stage, **k)
+            first["update"] = tr.last_update
+            return out
+        return orig(tr, reward, batch_size, stage, **k)
+
+    DopplerTrainer._batched_rl_update = update
+    try:
+        pre = training.pretrain(tasks, rounds=2, batch_size=8,
+                                imitation_episodes=1, device=cuda)
+    finally:
+        DopplerTrainer._batched_rl_update = orig
+    assert np.isfinite(pre["per_task"]["ffnn|p100x4"]["best_time"])
+    twins = []
+    for backend in ("cuda", "torch"):
+        tr = DopplerTrainer(tasks[0].graph, tasks[0].dev, seed=0,
+                            d_hidden=64, lr0=3e-3, lr1=1e-5,
+                            total_episodes=1 + 2 * 8, device=cuda,
+                            encoder_backend=backend)
+        params, opt, gen, episode = first["state"]
+        tr.params, tr.opt_state, tr.episode = params, opt, episode
+        tr.generator.set_state(gen)
+        tr._batched_rl_update(first["reward"], 8, "pretrain")
+        twins.append(tr)
+    kern, plain = twins
+    assert np.array_equal(kern.last_update["rewards"],
+                          first["update"]["rewards"])
+    _assert_same_update(kern, plain)
