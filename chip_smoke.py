@@ -221,6 +221,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    lines, each run's trainer seconds and the executor's wall and host
    dispatch ms.  The pair must launch in 12a, 12b and 12d and
    ``wc_trips`` in 12d; no single-direction ``gnn_mp`` or ``wc_step``.
+   While each part runs, ``_KernelLog`` keeps the first pair launch at
+   each (n, m, d), every ``wc_trips`` launch's inputs and outputs, and
+   each replayed fused Stage II update's batch; after it, every entry is
+   held against the plain version (the pair at GNN_REL_TOL, ``wc_trips``
+   bit for bit in every placement), and every ``wc_trips`` launch the
+   part counted must be logged or a capture whose replays were.
    On each path the launch counts are reset just before it is driven and
    read just after (checks against plain versions and timings excluded);
    every Pallas kernel must have a port that launched on its path.
@@ -273,6 +279,8 @@ from repro_torch.core.sim_torch import (SimGraph,  # noqa: E402
                                         TorchWCEngine, makespan_fifo_batch,
                                         trip_inputs)
 from repro_torch.core.simulator import WCSimulator  # noqa: E402
+from repro_torch.core import sim_torch  # noqa: E402
+from repro_torch.core.train_fused import FusedStage2  # noqa: E402
 from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
                                        FleetTrainer, PretrainTask,
                                        _pg_loss_and_grad_batch, pretrain,
@@ -707,6 +715,13 @@ def check_trips(sg, A, what: str) -> tuple:
     """wc_trips == wc_trips_ref, bit for bit on ms and n_done (so on ok),
     in every placement the state allows; -> (ok (B,), placements)."""
     args = trip_inputs(sg, torch.as_tensor(A, device=sg.esrc.device))
+    _, nd_r, places = check_trip_args(sg, args, what)
+    return nd_r == sg.n_compute, places
+
+
+def check_trip_args(sg, args, what: str) -> tuple:
+    """``check_trips`` on a batch's trip inputs; -> (the plain loop's ms
+    and n_done, the placements run)."""
     ms_r, nd_r = wc_trips_ref(sg, *args)
     places = trips_placements(sg)
     for where in places:
@@ -716,7 +731,7 @@ def check_trips(sg, A, what: str) -> tuple:
               f"wc_trips == plain on {what} ({where}): ms max abs diff "
               f"{float((ms_k - ms_r).abs().max())}, n_done differs in "
               f"{int((nd_k != nd_r).sum())} episodes")
-    return nd_r == sg.n_compute, places
+    return ms_r, nd_r, places
 
 
 def trips_bound(sg, args) -> tuple:
@@ -3154,20 +3169,157 @@ def cli_path(dev) -> dict:
     return res
 
 
+def _by_graph(rows) -> list:
+    """(sg, *fields) rows -> [(sg, [each field's list])], one a SimGraph
+    (its batches are held together: episodes are independent)."""
+    groups: dict = {}
+    for sg, *fields in rows:
+        cols = groups.setdefault(id(sg), (sg, [[] for _ in fields]))[1]
+        for col, x in zip(cols, fields):
+            col.append(x)
+    return list(groups.values())
+
+
+class _KernelLog:
+    """While on, logs what path 12's kernels were given and what they gave
+    back: the first ``gnn_mp`` pair launch at each (n, m, d), every
+    ``wc_trips`` launch outside a CUDA graph capture (its trip inputs and
+    outputs), and each replayed fused Stage II update's batch (its
+    sampled assignments, makespans and ok flags).  Launches that a
+    capture records are counted apart: each replay of them is logged as
+    an update.  ``hold()`` then holds every entry against the plain
+    version on the same inputs."""
+
+    def __init__(self):
+        self.pairs: dict = {}
+        self.trips: list = []
+        self.updates: list = []
+        self.captured = {"pair": 0, "trips": 0}
+
+    def __enter__(self):
+        self._orig = (gnn_ops._launch_pair, sim_torch.wc_trips)
+        pair0, trips0 = self._orig
+        run0 = FusedStage2._run
+        log = self
+
+        def pair(msg_a, csr_a, msg_b, csr_b, n):
+            out = pair0(msg_a, csr_a, msg_b, csr_b, n)
+            key = (n, *msg_a.shape)
+            if torch.cuda.is_current_stream_capturing():
+                log.captured["pair"] += 1
+            elif key not in log.pairs:
+                log.pairs[key] = (msg_a.clone(), csr_a, msg_b.clone(), csr_b,
+                                  out.clone())
+            return out
+
+        def trips(sg, *args, **kw):
+            out = trips0(sg, *args, **kw)
+            if kw.get("backend", "cuda") == "torch" or not out[0].is_cuda:
+                return out
+            if torch.cuda.is_current_stream_capturing():
+                log.captured["trips"] += 1
+            else:
+                log.trips.append((sg, [a.clone() for a in args],
+                                  *(t.clone() for t in out)))
+            return out
+
+        def run(eng, load, fill, u, keep):
+            def kept():
+                o = eng.out
+                log.updates.append((eng.sg, o["actions"].clone(),
+                                    o["makespans"].clone(),
+                                    o["oracle_ok"].clone()))
+                return keep()
+            return run0(eng, load, fill, u, kept)
+
+        gnn_ops._launch_pair, sim_torch.wc_trips = pair, trips
+        FusedStage2._run = run
+        return self
+
+    def __exit__(self, *exc):
+        gnn_ops._launch_pair, sim_torch.wc_trips = self._orig
+        del FusedStage2._run
+        return False
+
+    def hold(self, what: str) -> dict:
+        """Every logged launch against its plain version: the pair at
+        GNN_REL_TOL, ``wc_trips`` bit for bit (ms, n_done) in every
+        placement."""
+        worst = [0.0, 0.0]
+        for (n, m, d), (ma, ca, mb, cb, out) in self.pairs.items():
+            for i, (msg, csr) in enumerate(((ma, ca), (mb, cb))):
+                ref = segment_sum_ref(msg, None, n, csr)
+                err = float((out[i] - ref).abs().max())
+                rel = err / max(float(ref.abs().max()), 1e-30)
+                check(rel <= GNN_REL_TOL,
+                      f"{what}: gnn_mp pair at n={n} m={m} d={d} direction "
+                      f"{i}: relative error {rel} > {GNN_REL_TOL}")
+                worst = [max(worst[0], err), max(worst[1], rel)]
+        seen = {"shared": 0, "global": 0}
+        for sg, (args, ms, nd) in _by_graph(self.trips):
+            cat = [torch.cat(a) for a in zip(*args)]
+            ms_r, nd_r, places = check_trip_args(
+                sg, cat, f"{what}'s {len(ms)} logged batches at n={sg.n}")
+            check(torch.equal(torch.cat(ms), ms_r)
+                  and torch.equal(torch.cat(nd), nd_r),
+                  f"{what}: the path's wc_trips results at n={sg.n} "
+                  f"bit-equal to the plain trip loop on their inputs")
+            for w in places:
+                seen[w] += 1
+        for sg, (acts, ms, ok) in _by_graph(self.updates):
+            A = np.concatenate([assignment_of(a) for a in acts])
+            args = trip_inputs(sg, torch.as_tensor(A, device=sg.esrc.device))
+            ms_r, nd_r, places = check_trip_args(
+                sg, args, f"{what}'s {len(A)} replayed episodes at n={sg.n}")
+            check(torch.equal(torch.cat(ms), ms_r)
+                  and torch.equal(torch.cat(ok), nd_r == sg.n_compute),
+                  f"{what}: every replayed update's makespans and ok flags "
+                  f"at n={sg.n} bit-equal to the plain trip loop")
+            for w in places:
+                seen[w] += 1
+        check(not self.captured["trips"] or self.updates,
+              f"{what}: captured wc_trips launches are held through their "
+              f"replays")
+        out = {"pair_shapes": sorted(self.pairs), "pair_max_abs_err": worst[0],
+               "pair_max_rel_err": worst[1],
+               "trips_batches": len(self.trips),
+               "trips_episodes": sum(len(t[2]) for t in self.trips),
+               "updates": len(self.updates),
+               "update_episodes": sum(len(u[2]) for u in self.updates),
+               "placements": seen, "captured": dict(self.captured)}
+        print(f"{what} held against the plain versions: gnn_mp pair at "
+              f"(n, m, d) {out['pair_shapes']}, max abs err {worst[0]}, "
+              f"max rel err {worst[1]}; wc_trips bit-equal on "
+              f"{out['trips_batches']} launched batches "
+              f"({out['trips_episodes']} episodes) and {out['updates']} "
+              f"replayed updates ({out['update_episodes']} episodes), "
+              f"placements run {seen}; captures {self.captured}")
+        return out
+
+
 def path12(dev, by_name) -> None:
     """Path 12: pretraining, zero-shot serving, FleetTrainer and the
     training CLI on the card; the launch counts are reset before each
     part and read after it."""
-    t_path, counts = time.perf_counter(), {}
+    t_path, counts, held = time.perf_counter(), {}, {}
 
     def part(name, fn):
         gnn_ops.launches = gnn_ops.pair_launches = 0
         wc_ops.launches = wc_ops.trip_launches = 0
         t0 = time.perf_counter()
-        out = fn()
+        with _KernelLog() as log:
+            out = fn()
         counts[name] = _launch_counts()
-        print(f"path {name} wall s: {time.perf_counter() - t0:.3f}; "
-              f"launches {counts[name]}")
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        held[name] = _uncounted(lambda: log.hold(f"path {name}"))
+        c = counts[name]
+        check(held[name]["trips_batches"] + held[name]["captured"]["trips"]
+              == c["wc_oracle_trips"],
+              f"path {name}: every wc_trips launch logged or captured: "
+              f"{held[name]}, {c}")
+        print(f"path {name} wall s: {wall:.3f}; launches {c}; the hold "
+              f"{time.perf_counter() - t0:.3f} s")
         return out
 
     pre = part("12a", lambda: pretrain_path(dev))
@@ -3185,6 +3337,17 @@ def path12(dev, by_name) -> None:
         p: c["gnn_mp_pair"] for p, c in counts.items()}
     by_name["wc_oracle_trips"]["pretrain_serve_cli"] = {
         p: c["wc_oracle_trips"] for p, c in counts.items()}
+    pair = by_name["gnn_mp_pair"]
+    pair["max_abs_err"] = max([pair["max_abs_err"]] + [
+        h["pair_max_abs_err"] for h in held.values()])
+    pair["max_rel_err"] = max([pair["max_rel_err"]] + [
+        h["pair_max_rel_err"] for h in held.values()])
+    pair["pretrain_serve_cli_held"] = {
+        p: [list(k) for k in h["pair_shapes"]] for p, h in held.items()}
+    by_name["wc_oracle_trips"]["pretrain_serve_cli_held"] = {
+        p: {k: h[k] for k in ("trips_batches", "trips_episodes", "updates",
+                              "update_episodes", "placements")}
+        for p, h in held.items()}
 
 
 def main() -> int:

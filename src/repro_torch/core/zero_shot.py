@@ -22,26 +22,17 @@ from .device import resolve_device
 from .devices import DeviceModel, uniform_box
 from .features import COMM_FACTOR_DEFAULT
 from .graph import DataflowGraph
-from .nn import tree_map
+from ..models.convert import params_from_numpy, params_to_numpy
 
 
 def to_numpy_params(params) -> dict:
-    """A param tree of torch tensors (any device) or numpy arrays as
-    float32 numpy leaves."""
-    def leaf(x):
-        if isinstance(x, torch.Tensor):
-            x = x.detach().cpu().numpy()
-        return np.asarray(x, dtype=np.float32)
-    return tree_map(leaf, params)
+    """The reference's name for ``convert.params_to_numpy`` as float32:
+    torch (any device) or numpy leaves -> float32 numpy leaves."""
+    return params_to_numpy(params, np.float32)
 
 
-def params_on(params, device: str | torch.device = "cuda") -> dict:
-    """A param tree (torch or numpy leaves) as float32 tensors on
-    ``device``."""
-    device = resolve_device(device)
-    return tree_map(lambda x: torch.as_tensor(
-        np.array(x, dtype=np.float32) if not isinstance(x, torch.Tensor)
-        else x, dtype=torch.float32).to(device), params)
+def _on(params, device: torch.device) -> dict:
+    return params_from_numpy(params, device, torch.float32)
 
 
 def _backend(device: torch.device) -> str:
@@ -57,7 +48,7 @@ def encode_graph(params, g: DataflowGraph,
     depend on the fleet, so the graph's data is built for one device."""
     device = resolve_device(device)
     gd = build_graph_data(g, uniform_box(1), comm_factor, device)
-    return encode(params_on(params, device), gd, _backend(device))
+    return encode(_on(params, device), gd, _backend(device))
 
 
 def greedy_place(params, g: DataflowGraph, dev: DeviceModel,
@@ -69,6 +60,6 @@ def greedy_place(params, g: DataflowGraph, dev: DeviceModel,
     numpy leaves.  Returns the (n,) assignment."""
     device = resolve_device(device)
     gd = build_graph_data(g, dev, comm_factor, device)
-    out = rollout_batch(params_on(params, device), gd, 1, greedy=True,
+    out = rollout_batch(_on(params, device), gd, 1, greedy=True,
                         encoder_backend=_backend(device))
     return out["assignment"][0].cpu().numpy()

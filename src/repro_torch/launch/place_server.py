@@ -39,7 +39,8 @@ from ..core.features import COMM_FACTOR_DEFAULT
 from ..core.graph import DataflowGraph, topo_hash
 from ..core.heuristics import critical_path_assignment
 from ..core.simulator import WCSimulator
-from ..core.zero_shot import greedy_place, params_on
+from ..core.zero_shot import greedy_place
+from ..models.convert import params_from_numpy
 
 
 @dataclasses.dataclass
@@ -76,7 +77,7 @@ class PlacementServer:
                  comm_factor: float = COMM_FACTOR_DEFAULT,
                  cp_seeds: int = 2, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        self.params = params_on(params, self.device)
+        self.params = params_from_numpy(params, self.device, torch.float32)
         self.meta = dict(meta or {})
         self.comm_factor = comm_factor
         self.cp_seeds = cp_seeds

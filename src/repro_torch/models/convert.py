@@ -15,13 +15,26 @@ import torch
 from ..core.nn import tree_map
 
 
-def params_from_numpy(tree, device: str | torch.device = "cpu"):
+def _host(x, dtype=None) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cpu",
+                      dtype: torch.dtype | None = None):
     """Numpy leaves (e.g. ``jax.tree_util.tree_map(np.asarray, params)``)
-    -> torch tensors on ``device``, in the same nesting."""
-    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True))
-                    .to(device), tree)
+    or torch leaves -> torch tensors on ``device``, in the same nesting;
+    ``dtype`` casts every leaf.  Numpy leaves are copied; a torch leaf
+    already on ``device`` in ``dtype`` is kept as it is."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device, dtype)
+        return torch.from_numpy(np.array(x, copy=True)).to(device, dtype)
+    return tree_map(leaf, tree)
 
 
-def params_to_numpy(params):
-    """The inverse of ``params_from_numpy``: numpy leaves on the host."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), params)
+def params_to_numpy(params, dtype=None):
+    """The inverse of ``params_from_numpy``: numpy leaves on the host,
+    from torch or numpy leaves; ``dtype`` (numpy) casts every leaf."""
+    return tree_map(lambda x: _host(x, dtype), params)

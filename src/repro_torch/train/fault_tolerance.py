@@ -245,21 +245,17 @@ class _CursorStream:
 
 
 def _snapshot(trainer) -> tuple:
-    """The trainer state a rollback restores: params, AdamW state, the
+    """The trainer state a rollback restores: copies of params and the
+    AdamW state (a fused engine updates its buffers in place), the
     generator's state (the port's counterpart of the reference's PRNG
     key: without it a rollback replays other draws), the episode counter,
-    reward statistics and the best so far.  The non-fused updates replace
-    params and moments, so they are kept by reference; a fused engine in
-    the trainer's cache updates its buffers in place, so then they are
-    copied."""
-    params, opt = trainer.params, trainer.opt_state
-    if any(k != "sim_graph" for k in trainer._fused_cache):
-        params = tree_map(torch.clone, params)
-        opt = AdamState(opt.step.clone() if torch.is_tensor(opt.step)
-                        else opt.step, tree_map(torch.clone, opt.mu),
-                        tree_map(torch.clone, opt.nu))
+    reward statistics and the best so far."""
+    opt = trainer.opt_state
+    step = opt.step.clone() if torch.is_tensor(opt.step) else opt.step
     best = trainer.best_assignment
-    return (params, opt, trainer.generator.get_state(), trainer.episode,
+    return (tree_map(torch.clone, trainer.params),
+            AdamState(step, tree_map(torch.clone, opt.mu),
+                      tree_map(torch.clone, opt.nu)), trainer.generator.get_state(), trainer.episode,
             trainer._r_sum, trainer._r_sqsum, trainer._r_count,
             None if best is None else np.array(best), trainer.best_time)
 

@@ -15,6 +15,7 @@ same params:
 import jax
 import numpy as np
 import pytest
+import torch
 
 from conftest import make_chain, make_diamond, random_dag
 from repro.core.devices import get_device_model as jax_fleet
@@ -32,9 +33,10 @@ from repro_torch.core.heuristics import critical_path_assignment
 from repro_torch.core.nn import tree_leaves
 from repro_torch.core.simulator import WCSimulator
 from repro_torch.core.zero_shot import (encode_graph, greedy_place,
-                                        params_on, to_numpy_params)
+                                        to_numpy_params)
 from repro_torch.launch.place_server import (PlacementServer, PlaceRequest,
                                              PlaceResult)
+from repro_torch.models.convert import params_from_numpy
 from test_torch_pretrain import one_thread_a_process  # noqa: F401
 from test_torch_train import port_graph
 
@@ -82,13 +84,19 @@ def test_greedy_place_matches_reference(jparams, cell):
 
 
 def test_to_numpy_params_and_params_on(jparams):
-    tp = params_on(jparams, "cpu")
-    assert all(x.dtype.is_floating_point for x in tree_leaves(tp))
+    """The zero-shot path's converters are ``models.convert``'s: numpy
+    leaves to float32 tensors and back bit-equal, a tensor already on the
+    device in float32 kept as it is."""
+    tp = params_from_numpy(jparams, "cpu", torch.float32)
+    assert all(x.dtype == torch.float32 for x in tree_leaves(tp))
     back = to_numpy_params(tp)
-    assert all(np.array_equal(a, b) for a, b in zip(
+    assert all(a.dtype == np.float32 and np.array_equal(a, b) for a, b in zip(
         jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jparams)))
-    assert params_on(tp, "cpu")["gnn"]["embed"]["layers"][0]["w"] is \
-        tp["gnn"]["embed"]["layers"][0]["w"]
+    assert params_from_numpy(tp, "cpu", torch.float32)["gnn"]["embed"][
+        "layers"][0]["w"] is tp["gnn"]["embed"]["layers"][0]["w"]
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(to_numpy_params(back)),
+        jax.tree_util.tree_leaves(jparams)))
 
 
 @pytest.mark.parametrize("cell", CELLS)
