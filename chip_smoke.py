@@ -37,7 +37,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    four kernels (``ssd_qk_scores``, ``ssd_chunk_state``,
    ``ssd_state_pass``, ``ssd_chunk_y``), each timed in device time under
    the profiler, beside the fp32 bound and the tensor-core bound of the
-   work the design issues.
+   work the design issues (xLSTM's shape, N 1024, is path 13's).
 4. placement path: three placement requests through ``DopplerTrainer(...,
    device="cuda")`` at the policy's published width (d_hidden 64, d_z 32,
    d_y 32, 2 GNN layers, random weights from a seed): one ``gnn_mp`` pair
@@ -230,7 +230,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    On each path the launch counts are reset just before it is driven and
    read just after (checks against plain versions and timings excluded);
    every Pallas kernel must have a port that launched on its path.
-13. prints the ``kernels`` JSON line and, last, the result line.
+13. serving path, run right after item 6: xlstm-1.3b at full width and
+   depth (48 layers: 42 mLSTM and 6 sLSTM blocks, d_model 2048, vocab
+   50,304; random seed-0 weights in bf16, ~3.4e9 parameters).  First
+   ``mamba2_scan`` against its plain version at xLSTM's mLSTM prefill
+   shape (B 4, S 2048, H 4, N = P = 1024 a head, 1025 columns of v with
+   the normalizer channel, chunk 256, q and k per head) with and without
+   an initial state and on ragged shapes past one tile of N (N 100-1024, P
+   33-1025), timed by pass beside the fp32 and tensor-core bounds.  Then
+   batch 4 x prompt 2048, 32 greedy tokens through
+   ``repro_torch.launch.serve``'s functions: one prefill must launch
+   ``mamba2_scan`` 42 times and ``flash_attention`` never, by the
+   wrappers' counts, in the served prefill and in the profiled one, whose
+   profile must hold each of the scan's four kernels.  Logits gates at
+   zamba2's bars: bf16 over 48 layers on each of XLSTM_BF16_SEEDS no
+   further from the plain path than its own bf16-vs-fp32 gap; fp32 over
+   one full-width unit (XLSTM_UNIT_LAYERS, 7 mLSTM + 1 sLSTM) within
+   LOGITS_TOL, both paths' error against the plain path in float64
+   printed beside it.  Prints prefill s, decode ms a step, tokens per
+   second, peak memory, the sLSTM loop inside served prefills (its 6
+   blocks' calls timed between syncs; the first block's launches under
+   the profiler), and one prefill and one decode step under
+   ``torch.profiler``.
+14. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -306,6 +328,7 @@ from repro_torch.launch import doppler_train  # noqa: E402
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
                                       prompt_tokens)
+from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models.transformer import init_decode_state  # noqa: E402
@@ -327,6 +350,10 @@ GNN_REL_TOL = 1e-5
 # seed-0 weights
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "zamba2_1p2b", 4, 2048, 32
 GEMMA_ARCH = "gemma_2b"
+# path 13: xlstm-1.3b at full width and depth, the same request; its fp32
+# gate and fp64 reading over one full-width unit (7 mLSTM + 1 sLSTM):
+# fp32 and fp64 copies of all 48 layers would take 13.7 and 27 GB
+XLSTM_ARCH, XLSTM_UNIT_LAYERS = "xlstm_1p3b", 8
 # kernel vs plain: tests/test_kernels.py's bars (flash: atol = rtol =
 # 2e-5 in fp32, 2e-2 in bf16 and fp16; mamba2_scan: 1e-4 of max(|ref|, 1))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -340,6 +367,10 @@ SSD_TOL = 1e-4
 LOGITS_TOL = 1e-4
 BF16_SEEDS = (0, 1, 2, 3)
 GEMMA_BF16_SEEDS = (0, 1)
+# xlstm-1.3b's 48-layer bf16 gate loads a 13.7 GB fp32 copy and serves
+# again for each seed: two, as gemma's (the 8-layer fp32 gate and the
+# kernel phase hold the kernel at 1e-4)
+XLSTM_BF16_SEEDS = (0, 1)
 # the training path: Stage I and Stage II at the policy's published width
 # on the placement slice's main shape; the gate (kernel backends vs plain
 # on the card, from one state) at the reference's bars: losses relative,
@@ -1021,21 +1052,23 @@ def _ssd_inputs(gen, B, S, H, N, P, dev, state=False, shared=True):
 def ssd_work(B, S, H, N, P, L, shared=True) -> tuple[float, float]:
     """Flops and bytes of one ``ssd_scan`` call as its kernels tile it
     (csrc/mamba2_scan.cu): 64 x 64 score tiles (the lower ones of each
-    chunk, once per batch row when q and k are shared), per-chunk states
-    over 128 columns of P, and 64 x 128 output tiles over the key tiles up
-    to the diagonal, each product over a depth of 64; tiles past S are
-    skipped.  Bytes: inputs read and outputs written once, the scores
-    scratch written and read, the chunk-states scratch written, read and
-    written, read.  -> (flops before the 3xTF32 split, bytes)."""
+    chunk, once per batch row when q and k are shared) over N / 64 depth
+    tiles, per-chunk states over 128 columns of P and 64 of N, and 64 x
+    128 output tiles over N / 64 depth tiles of q stateᵀ and the key tiles
+    up to the diagonal, each product over a depth of 64; tiles past S are
+    skipped, the part-empty last tiles of P and N counted whole.  Bytes:
+    inputs read and outputs written once, the scores scratch written and
+    read, the chunk-states scratch written, read and written, read.  ->
+    (flops before the 3xTF32 split, bytes)."""
     T, PT = ssd_ops.TILE, 2 * ssd_ops.TILE
-    nt, nc = -(-L // T), -(-S // L)
+    nt, nc, nn = -(-L // T), -(-S // L), -(-N // T)
     p_tiles, n_g = -(-P // PT), B if shared else B * H
     scores = state = out = 0
     for c in range(nc):
         live = [ti for ti in range(nt) if c * L + ti * T < S]
-        scores += sum(ti + 1 for ti in live)
-        state += len(live)
-        out += sum(ti + 2 for ti in live)    # the q stateᵀ tile and keys
+        scores += sum(ti + 1 for ti in live) * nn
+        state += len(live) * nn
+        out += sum(ti + 1 + nn for ti in live)   # q stateᵀ tiles and keys
     tile = 2.0 * T * T * T
     flops = (n_g * scores * tile + B * H * p_tiles * 2 * (state + out)
              * tile)
@@ -1044,6 +1077,60 @@ def ssd_work(B, S, H, N, P, L, shared=True) -> tuple[float, float]:
     scratch = (2 * n_g * nc * nt * (nt + 1) // 2 * T * T
                + 4 * B * H * nc * P * N)
     return flops, 4.0 * (io + scratch)
+
+
+def ssd_bound(B, S, H, N, P, L, shared=True) -> tuple[float, str, float]:
+    """The fp32 bound of one ``ssd_scan`` call at the serving shapes (S a
+    multiple of L) -> (ms, what bounds it, useful flops).  Per (b,
+    chunk), or per (b*h, chunk) when q and k are per head: the causal
+    pairs' q.k (2N).  Per (b*h, chunk): decay (1) and p v (2P); q stateᵀ
+    (2LNP) and its scale (LP); the update (2LNP + LP + 2PN).  Bytes: q
+    and k as the tensors they are, v, log_a, the state in; y and the
+    state out."""
+    pairs = L * (L + 1) / 2
+    per_head = pairs * (2 * P + 1) + 4 * L * N * P + 2 * L * P + 2 * P * N
+    flops = (B * (S // L) * (pairs * 2 * N + H * per_head) if shared
+             else B * H * (S // L) * (pairs * 2 * N + per_head))
+    qk = 2 * B * S * N * (1 if shared else H)
+    nbytes = 4.0 * (qk + B * S * H * P + B * S * H + 2 * B * H * P * N
+                    + B * S * H * P)
+    return (*bound_ms(nbytes, flops), flops)
+
+
+def time_scan(q, k, v, log_a, L, st0, iters: int) -> dict:
+    """One ``ssd_scan`` call timed with CUDA events (``iters`` calls), each
+    of its kernels in device time under the profiler (10 calls), and the
+    plain version."""
+    kern = lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0, backend="cuda")
+    ms = time_ms(kern, iters=iters, warmup=3)
+    calls = 10
+    _, rows = _profiled(lambda: [kern() for _ in range(calls)],
+                        ssd_ops.KERNELS)
+    by_kernel = per_launch_ms(rows, [(n, n) for n in ssd_ops.KERNELS])
+    plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, log_a, L, st0),
+                       iters=5, warmup=1)
+    return {"ms": ms, "device_ms": sum(by_kernel.values()),
+            "by_kernel": by_kernel, "plain_ms": plain_ms}
+
+
+def check_scan_cases(dev, gen, cases) -> float:
+    """Kernel vs plain, y and the final state within SSD_TOL of max(|ref|,
+    1), on each (B, S, H, N, P, chunk, initial state, shared q and k);
+    -> the largest absolute error."""
+    max_err = 0.0
+    for b, s, h, n, p, L_, st, sh in cases:
+        q, k, v, log_a, st0 = _ssd_inputs(gen, b, s, h, n, p, dev, st, sh)
+        y, fin = ssd_ops.ssd_scan(q, k, v, log_a, L_, st0, backend="cuda")
+        y_r, fin_r = ssd_scan_ref(q, k, v, log_a, L_, st0)
+        torch.cuda.synchronize()
+        for what, got, ref in (("y", y, y_r), ("state", fin, fin_r)):
+            err = scaled_err(got, ref)
+            check(err <= SSD_TOL, f"mamba2_scan {what} "
+                                  f"{b, s, h, n, p, L_, st, sh}: scaled err "
+                                  f"{err} > {SSD_TOL}")
+            max_err = max(max_err, float((got - ref).abs().max()))
+        del q, k, v, log_a, st0, y, fin, y_r, fin_r
+    return max_err
 
 
 def check_mamba2(dev, cfg) -> dict:
@@ -1069,18 +1156,7 @@ def check_mamba2(dev, cfg) -> dict:
                       int(rng.choice([16, 64, 100, 256])),
                       int(rng.choice([8, 64, 100, 256])),
                       bool(rng.integers(2)), bool(rng.integers(2))))
-    max_err = 0.0
-    for b, s, h, n, p, L_, st, sh in cases:
-        q, k, v, log_a, st0 = _ssd_inputs(gen, b, s, h, n, p, dev, st, sh)
-        y, fin = ssd_ops.ssd_scan(q, k, v, log_a, L_, st0, backend="cuda")
-        y_r, fin_r = ssd_scan_ref(q, k, v, log_a, L_, st0)
-        torch.cuda.synchronize()
-        for what, got, ref in (("y", y, y_r), ("state", fin, fin_r)):
-            err = scaled_err(got, ref)
-            check(err <= SSD_TOL, f"mamba2_scan {what} "
-                                  f"{b, s, h, n, p, L_, st, sh}: scaled err "
-                                  f"{err} > {SSD_TOL}")
-            max_err = max(max_err, float((got - ref).abs().max()))
+    max_err = check_scan_cases(dev, gen, cases)
     print(f"mamba2_scan vs plain on {len(cases)} shapes (serving B={B} "
           f"S={S} H={H} N={N} P={P} L={L} with and without an initial "
           f"state, P and chunk 100, N 50, S=1, shared and per-head q and k, "
@@ -1104,28 +1180,10 @@ def check_mamba2(dev, cfg) -> dict:
 
     q, k, v, log_a, st0 = _ssd_inputs(gen, B, S, H, N, P, dev)
     st0 = torch.zeros(B, H, P, N, device=dev)       # prefill's initial state
-    kern = lambda: ssd_ops.ssd_scan(q, k, v, log_a, L, st0, backend="cuda")
-    ms = time_ms(kern, iters=30, warmup=3)
-    calls = 10
-    _, rows = _profiled(lambda: [kern() for _ in range(calls)],
-                        ssd_ops.KERNELS)
-    by_kernel = {name: sum(us for us, _, key in rows if name in key)
-                 * 1e-3 / calls for name in ssd_ops.KERNELS}
-    dev_ms = sum(by_kernel.values())
-    plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, log_a, L, st0),
-                       iters=5, warmup=1)
-    # the fp32 bound, unchanged.  Per (b, chunk): the causal pairs'
-    # q.k (2N), once, since q and k are one tensor broadcast over the
-    # heads.  Per (b*h, chunk): decay (1) and p v (2P); q stateᵀ (2LNP)
-    # and its scale (LP); the update (2LNP + LP + 2PN)
-    pairs = L * (L + 1) / 2
-    per_head = pairs * (2 * P + 1) + 4 * L * N * P + 2 * L * P + 2 * P * N
-    flops = B * (S // L) * (pairs * 2 * N + H * per_head)
-    # q, k as the (B, S, N) tensors they are; v, log_a, the state in; y
-    # and the state out
-    nbytes = 4.0 * (2 * B * S * N + B * S * H * P + B * S * H
-                    + 2 * B * H * P * N + B * S * H * P)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    t = time_scan(q, k, v, log_a, L, st0, iters=30)
+    ms, dev_ms, by_kernel, plain_ms = (t["ms"], t["device_ms"],
+                                       t["by_kernel"], t["plain_ms"])
+    b_ms, b_by, flops = ssd_bound(B, S, H, N, P, L)
     # the tensor-core bound of the work the kernels issue: 3xTF32 triples
     # their tiles' flops; the scratch counts in the bytes
     tc_flops, tc_bytes = ssd_work(B, S, H, N, P, L)
@@ -1148,6 +1206,54 @@ def check_mamba2(dev, cfg) -> dict:
             "tc_flops_issued": 3 * tc_flops, "library_ms": None,
             "y_vs_fp64": fp64,
             "shape": {"B": B, "S": S, "H": H, "N": N, "P": P, "chunk": L}}
+
+
+def check_mamba2_xlstm(dev, cfg) -> dict:
+    """``mamba2_scan`` at xLSTM's mLSTM prefill shape (B 4, S 2048, H 4,
+    N = P = 1024 a head, 1025 columns of v with the normalizer channel,
+    chunk 256, q and k per head), with and without an initial state, and
+    past one tile of N on ragged shapes (N 100, 200, 1000; P 1025, 100,
+    33; S not a multiple of the chunk; shared and per-head q and k; S 1).
+    Timed like zamba2's shape, beside the fp32 bound and the tensor-core
+    bound of the work the kernels issue (``ssd_work``)."""
+    gen = torch.Generator(dev).manual_seed(3)
+    H = cfg.ssm.n_heads
+    N = cfg.ssm.expand * cfg.d_model // H
+    B, S, P, L = SERVE_BATCH, SERVE_PROMPT, N + 1, cfg.ssm.chunk
+    cases = [(B, S, H, N, P, L, False, False), (B, S, H, N, P, L, True, False),
+             (1, 300, 2, 100, 1025, 256, True, False),
+             (2, 129, 2, 1000, 100, 64, False, False),
+             (2, 300, 2, 1000, 1025, 100, True, True),
+             (1, 77, 3, 200, 33, 32, False, True),
+             (1, 1, 2, 1024, 1025, 256, True, False)]
+    max_err = check_scan_cases(dev, gen, cases)
+    print(f"mamba2_scan vs plain at xLSTM's shape B={B} S={S} H={H} N={N} "
+          f"P={P} L={L} (per-head q and k, with and without an initial "
+          f"state) and on {len(cases) - 2} ragged shapes with N 100-1024: "
+          f"y and state within {SSD_TOL} of max(|ref|, 1); max abs err "
+          f"{max_err}")
+    q, k, v, log_a, _ = _ssd_inputs(gen, B, S, H, N, P, dev, shared=False)
+    st0 = torch.zeros(B, H, P, N, device=dev)       # prefill's initial state
+    t = time_scan(q, k, v, log_a, L, st0, iters=10)
+    del q, k, v, log_a, st0
+    b_ms, b_by, flops = ssd_bound(B, S, H, N, P, L, shared=False)
+    tc_flops, tc_bytes = ssd_work(B, S, H, N, P, L, shared=False)
+    tc_ms, tc_by = bound_ms(tc_bytes, 3 * tc_flops, TF32_FLOP_PER_S)
+    print(f"mamba2_scan at xLSTM's shape ({CARD}): {t['ms']:.5f} ms per "
+          f"call, {t['device_ms']:.5f} ms device per call ("
+          + ", ".join(f"{n} {x:.5f}" for n, x in t["by_kernel"].items())
+          + f"), {flops / t['ms'] * 1e-9:.1f} TFLOP/s useful; fp32 bound "
+          f"{b_ms:.5f} ms ({b_by}, {flops:.4g} flops); tensor-core bound of "
+          f"the {3 * tc_flops:.4g} flops and {tc_bytes / 1e6:.1f} MB issued "
+          f"{tc_ms:.5f} ms ({tc_by}); plain {t['plain_ms']:.5f} ms")
+    return {"max_abs_err": max_err, "ms": t["ms"],
+            "timed_device_ms": t["device_ms"],
+            "timed_device_ms_by_kernel": t["by_kernel"],
+            "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
+            "tc_flops_issued": 3 * tc_flops, "library_ms": None,
+            "shape": {"B": B, "S": S, "H": H, "N": N, "P": P, "chunk": L,
+                      "qk": "per head"}}
 
 
 # ------------------------------------------------------------ main path
@@ -1234,9 +1340,8 @@ def profile_request(tr, untraced_s: float) -> dict:
     time per kernel name and the device's busy share of the request.
     Tracing slows the host side only, so the share is also given against
     the untraced request's wall time from the main path."""
-    traced_s, prof = _trace(lambda: tr.place(n_samples=K_POP, eps=EPS),
-                            ("segment_sum_pair", "wc_trips<"))
-    rows = device_rows(prof)
+    traced_s, _, rows = _trace(lambda: tr.place(n_samples=K_POP, eps=EPS),
+                               ("segment_sum_pair", "wc_trips<"))
     busy_s = sum(r[0] for r in rows) * 1e-6
     print(f"profile llama_layer request: traced_s={traced_s:.6f} "
           f"untraced_s={untraced_s:.6f} device_busy_s={busy_s:.6f} "
@@ -1503,6 +1608,180 @@ def check_gemma_path(cfg, params, prompt, res, launches, peak_gb, dev):
     torch.cuda.empty_cache()
     check(err <= tol, f"{cfg.name} fp32 {cfg.n_layers} layers: kernel vs "
                       f"plain logits {err} > {tol}")
+
+
+def check_xlstm_path(cfg, params, prompt, res, launches, peak_gb, dev):
+    """xlstm-1.3b: launches, outputs, and its logits gates, at zamba2's
+    bars: bf16 over 48 layers on each of XLSTM_BF16_SEEDS against the plain
+    path's own bf16 gap; fp32 over one full-width unit (XLSTM_UNIT_LAYERS:
+    7 mLSTM + 1 sLSTM) within LOGITS_TOL, both paths' error against the
+    plain path in float64 printed beside it."""
+    pattern = cfg.pattern_for_depth()
+    n_m, n_s = pattern.count("mlstm"), pattern.count("slstm")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, n_m, n_s)
+          == (48, 2048, 50304, 42, 6),
+          "xlstm-1.3b at its published width and depth")
+    check(launches == {"flash_attention": 0, "mamba2_scan": n_m,
+                       "flash_fwd_wgmma": 0, "flash_fwd_mma": 0},
+          f"one xlstm-1.3b prefill launches mamba2_scan 42x and "
+          f"flash_attention never: {launches}")
+    check_outputs(cfg, res)
+    print_serve(cfg, res, launches, peak_gb)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gaps = []
+    for seed in XLSTM_BF16_SEEDS:
+        p16, toks, pr = params, res.tokens, prompt
+        if seed:
+            p16 = load_model(cfg, seed=seed, device=dev)
+            pr = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=seed,
+                               device=dev)
+            toks = generate(p16, cfg, pr, SERVE_GEN).tokens
+        p32 = load_model(cfg32, seed=seed, device=dev)
+        plain32 = teacher_forced(p32, cfg32, pr, toks, "torch",
+                                 torch.float32)
+        del p32
+        gaps.append(compare_paths(
+            p16, cfg, pr, toks, torch.bfloat16,
+            f"{cfg.name} bf16, {cfg.n_layers} layers, seed {seed}",
+            fp32=plain32))
+        del p16, plain32
+        torch.cuda.empty_cache()
+    for seed, (err, tol) in zip(XLSTM_BF16_SEEDS, gaps):
+        check(err <= tol, f"{cfg.name} bf16 seed {seed}: kernel vs plain "
+                          f"logits {err} > the plain path's own bf16 gap "
+                          f"{tol}")
+    cfg_u = dataclasses.replace(cfg32, n_layers=XLSTM_UNIT_LAYERS)
+    p32 = load_model(cfg_u, seed=0, device=dev)
+    plain32 = teacher_forced(p32, cfg_u, prompt, res.tokens, "torch",
+                             torch.float32)
+    p64 = tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                   p32)
+    plain64 = teacher_forced(p64, cfg_u, prompt, res.tokens, "torch",
+                             torch.float64)
+    del p64
+    err, tol = compare_paths(p32, cfg_u, prompt, res.tokens, torch.float32,
+                             f"{cfg.name} fp32, one full-width unit "
+                             f"({XLSTM_UNIT_LAYERS} layers)", plain=plain32,
+                             fp64=plain64)
+    del p32, plain32, plain64
+    torch.cuda.empty_cache()
+    check(err <= tol, f"{cfg.name} fp32 {XLSTM_UNIT_LAYERS} layers: kernel "
+                      f"vs plain logits {err} > {tol}")
+
+
+@contextlib.contextmanager
+def _around_slstm(hook):
+    """Inside the block each ``slstm_forward`` call of the model runs as
+    ``hook(call)``, ``call`` the call itself."""
+    f = lm.slstm_forward
+    lm.slstm_forward = lambda *a, **kw: hook(lambda: f(*a, **kw))
+    try:
+        yield
+    finally:
+        lm.slstm_forward = f
+
+
+def slstm_in_prefill(params, cfg, prompt) -> dict:
+    """The sLSTM's loop over time (plain PyTorch, no kernel of its own)
+    inside served prefills: in one, each sLSTM block's call timed on the
+    host between device syncs, beside the prefill's own seconds; in a
+    second, the first sLSTM block's call under a device-only profiler
+    session, for its launches and device time (a session may lose a few
+    records, so the launches are as recorded; all six would cost ~60 s of
+    profiler post-processing)."""
+    B, S = prompt.shape
+    state = init_decode_state(cfg, B, S + SERVE_GEN, device=prompt.device)
+    prefill = make_prefill_step(cfg, S + SERVE_GEN)
+    calls_s, rows = [], []
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        calls_s.append(time.perf_counter() - t0)
+        return out
+
+    def traced_first(call):
+        if rows:
+            return call()
+        out = []
+        rows.extend(_trace(lambda: out.append(call()), cpu=False)[2])
+        return out[-1]
+
+    with torch.inference_mode():
+        with _around_slstm(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": prompt}, state)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        with _around_slstm(traced_first):
+            prefill(params, {"tokens": prompt}, state)
+    n_s = cfg.pattern_for_depth().count("slstm")
+    check(len(calls_s) == n_s, f"one prefill runs {n_s} sLSTM blocks: "
+                               f"{len(calls_s)}")
+    slstm_s = sum(calls_s)
+    launches = sum(r[1] for r in rows)
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    print(f"sLSTM loop in a prefill ({CARD}; B {B} x S {S}, {n_s} blocks): "
+          f"{slstm_s:.6f} s of a {prefill_s:.6f} s prefill (synced at each "
+          f"block; blocks " + ", ".join(f"{t:.6f}" for t in calls_s)
+          + f" s); in another prefill the first block {launches} device "
+          f"launches recorded ({launches / S:.1f} a step), {busy_s:.6f} s "
+          f"device busy")
+    return {"blocks": n_s, "prefill_s": slstm_s, "block_s": calls_s,
+            "synced_prefill_s": prefill_s, "first_block_launches": launches,
+            "first_block_device_busy_s": busy_s}
+
+
+def xlstm_path(dev) -> dict:
+    """Path 13: the kernel at xLSTM's shape, then xlstm-1.3b served
+    (launch counts reset just before the request and read just after),
+    its gates, the sLSTM loop's reading and one profiled prefill and
+    decode step; -> the ``xlstm`` record of the ``mamba2_scan`` entry."""
+    t_path = time.perf_counter()
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    xlstm = check_mamba2_xlstm(dev, get_config(XLSTM_ARCH))
+    t0 = part("kernel", t0)
+    cfg, params, prompt, res, launches, peak_gb = serve_path(dev,
+                                                             XLSTM_ARCH)
+    t0 = part("serve", t0)
+    check_xlstm_path(cfg, params, prompt, res, launches, peak_gb, dev)
+    t0 = part("gates", t0)
+    slstm = slstm_in_prefill(params, cfg, prompt)
+    t0 = part("slstm", t0)
+    # one ssd_scan call that returns has launched each of its kernels once
+    serve_ms, by_kernel = profile_serve(
+        params, cfg, prompt, res,
+        {"flash_fwd_wgmma<": 0, "flash_fwd_mma<": 0,
+         **{name: launches["mamba2_scan"] for name in ssd_ops.KERNELS}},
+        cpu=False,
+        counted=lambda: {"flash_fwd_wgmma<":
+                         fa_ops.kernel_launches["flash_fwd_wgmma"],
+                         "flash_fwd_mma<":
+                         fa_ops.kernel_launches["flash_fwd_mma"],
+                         **dict.fromkeys(ssd_ops.KERNELS, ssd_ops.launches)})
+    part("profile", t0)
+    xlstm.update(
+        launches=launches["mamba2_scan"],
+        device_ms=serve_ms.get("mamba2_scan"), device_ms_by_kernel=by_kernel,
+        serve={"prefill_s": res.prefill_s,
+               "decode_ms_per_step": res.decode_ms_per_step,
+               "decode_tokens_per_s": SERVE_BATCH * (SERVE_GEN - 1)
+               / res.decode_s, "peak_memory_gb": peak_gb},
+        slstm=slstm)
+    del params, res
+    torch.cuda.empty_cache()
+    print(f"path 13 wall s: {time.perf_counter() - t_path:.3f} {parts}; "
+          f"launches {launches}")
+    return xlstm
 
 
 # ---------------------------------------------------------- training path
@@ -1937,11 +2216,10 @@ def profile_fused(tr, untraced_s: float) -> dict:
     replays) under ``torch.profiler``: device launches and busy share per
     update, device ms per kernel; the kernels inside the replayed graph
     must be the captured ones."""
-    traced_s, prof = _trace(
+    traced_s, _, rows = _trace(
         lambda: tr.stage2_fused(FUSED_PROFILED, batch_size=TRAIN_K,
                                 updates_per_dispatch=FUSED_DISPATCH),
         ("segment_sum_pair", "wc_trips<"))
-    rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) * 1e-6
     launches = sum(r[1] for r in rows)
     per = FUSED_PROFILED
@@ -1968,10 +2246,9 @@ def profile_fused(tr, untraced_s: float) -> dict:
 def profile_update(tr, engine, untraced_s: float) -> dict:
     """One more Stage II update under ``torch.profiler``: device launches
     and the device's busy share (traced and against an untraced update)."""
-    traced_s, prof = _trace(lambda: tr.train_rl(engine, 1,
-                                                batch_size=TRAIN_K),
-                            ("segment_sum_pair", "wc_trips<"))
-    rows = device_rows(prof)
+    traced_s, _, rows = _trace(lambda: tr.train_rl(engine, 1,
+                                                   batch_size=TRAIN_K),
+                               ("segment_sum_pair", "wc_trips<"))
     busy_s = sum(r[0] for r in rows) * 1e-6
     launches = sum(r[1] for r in rows)
     print(f"profile stage II update (K={TRAIN_K}): traced_s={traced_s:.6f} "
@@ -1990,55 +2267,77 @@ def profile_update(tr, engine, untraced_s: float) -> dict:
 TRACE_TRIES = 3     # profiler sessions before a trace without the rows stands
 
 
-def _trace(fn, tags=()):
-    """Run ``fn`` under ``torch.profiler``; -> (traced s, the profile).
-    Now and then a session on the card comes back without the device's
-    activity (no kernel rows, or not the kernel asked for): a session with
-    no device rows, or none whose name holds each of ``tags``, runs
-    ``fn`` again, up to ``TRACE_TRIES`` sessions."""
+def _trace(fn, tags=(), cpu=True):
+    """Run ``fn`` under ``torch.profiler``; -> (traced s, the profile, its
+    device rows).  Now and then a session on the card comes back without
+    the device's activity (no kernel rows, or not the kernel asked for): a
+    session with no device rows, or none whose name holds each of
+    ``tags``, runs ``fn`` again, up to ``TRACE_TRIES`` sessions.  A session
+    can also lose some of its kernel records (one of an xlstm-1.3b
+    prefill's 42 scans, PERF.md Findings), so launches are counted by the
+    wrappers and a profile's per-kernel times average the launches it
+    recorded.  ``cpu=False`` traces the device alone: on ~270,000 launches
+    (an xlstm-1.3b prefill) the host's op events took path 13 from 196 to
+    298 s."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
     for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             traced_s = time.perf_counter() - t0
-        keys = [key for _, _, key in device_rows(prof)]
+        rows = device_rows(prof)
+        keys = [key for _, _, key in rows]
         if keys and all(any(t in k for k in keys) for t in tags):
             break
-    return traced_s, prof
+    return traced_s, prof, rows
 
 
-def _profiled(fn, tags=()):
+def _profiled(fn, tags=(), cpu=True):
     """``fn`` under ``torch.profiler`` (``_trace``) in inference mode;
     -> (traced s, device rows)."""
     def run():
         with torch.inference_mode():
             fn()
-    traced_s, prof = _trace(run, tags)
-    return traced_s, device_rows(prof)
+    traced_s, _, rows = _trace(run, tags, cpu)
+    return traced_s, rows
 
 
-def profile_serve(params, cfg, prompt, res, expect: dict) -> dict:
+def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
+                  counted=None) -> dict:
     """One more prefill, then one decode step, under ``torch.profiler``:
     device time per kernel name and the device's busy share of each.
-    ``expect``: the prefill's launches by kernel-name tag."""
+    ``expect``: the prefill's launches by kernel-name tag, which the
+    profile must hold; ``cpu``: as ``_trace``'s.  ``counted`` (-> the
+    wrappers' launch counts by tag) is for a prefill of so many launches
+    that its session may lose a few kernel records (xlstm-1.3b's
+    ~270,000): then the wrappers' counts over the profiled prefill must
+    equal ``expect``, and the profile must hold each expected kernel at
+    least once and none more often than expected."""
     B, S = prompt.shape
     state = init_decode_state(cfg, B, S + SERVE_GEN, device=prompt.device)
     prefill = make_prefill_step(cfg, S + SERVE_GEN)
     decode = make_decode_step(cfg)
-    out = {}
-    phases = (("prefill", lambda: out.update(pre=prefill(
-                  params, {"tokens": prompt}, state)), res.prefill_s, 10,
+    out, wrapped = {}, []
+
+    def run_prefill():
+        c0 = counted() if counted else {}
+        out.update(pre=prefill(params, {"tokens": prompt}, state))
+        if counted:
+            wrapped.append({t: n - c0[t] for t, n in counted().items()})
+
+    phases = (("prefill", run_prefill, res.prefill_s, 10,
                tuple(t for t, c in expect.items() if c)),
               ("decode step", lambda: decode(
                   params, {"tokens": res.tokens[:, :1]}, out["pre"][1], S),
                res.decode_ms_per_step * 1e-3, 6, ()))
     rows_by_phase = {}
     for name, fn, untraced_s, top, tags in phases:
-        traced_s, rows = _profiled(fn, tags)
+        traced_s, rows = _profiled(fn, tags, cpu)
         busy_s = sum(r[0] for r in rows) * 1e-6
         print(f"profile {cfg.name} {name} (B={B}, S={S}): traced_s="
               f"{traced_s:.6f} untraced_s={untraced_s:.6f} device_busy_s="
@@ -2051,9 +2350,18 @@ def profile_serve(params, cfg, prompt, res, expect: dict) -> dict:
     pre = rows_by_phase["prefill"]
     counts = {tag: sum(c for _, c, key in pre if tag in key)
               for tag in expect}
-    print(f"profile {cfg.name} prefill: kernel launches {counts}")
-    check(counts == expect, f"the profiled {cfg.name} prefill runs "
-                            f"{expect}: {counts}")
+    print(f"profile {cfg.name} prefill: kernel launches recorded {counts}"
+          + (f", by the wrappers {wrapped[-1]}" if counted else ""))
+    if counted:
+        check(wrapped[-1] == expect, f"the profiled {cfg.name} prefill "
+                                     f"launches {expect}: {wrapped[-1]}")
+        check(all((c > 0) == (expect[t] > 0) and c <= expect[t]
+                  for t, c in counts.items()),
+              f"the profile of the {cfg.name} prefill holds each of "
+              f"{expect}: {counts}")
+    else:
+        check(counts == expect, f"the profiled {cfg.name} prefill runs "
+                                f"{expect}: {counts}")
     per = per_launch_ms(pre, (("flash_attention", "flash_fwd_wgmma<"),
                               ("flash_attention_mma", "flash_fwd_mma<"),
                               *((n, n) for n in ssd_ops.KERNELS)))
@@ -2188,8 +2496,8 @@ def profile_exec(ex, assignment) -> dict:
     wall time) beside their summed time over it (> 1 where streams
     overlap)."""
     ex.compile_plan(assignment)
-    traced_s, prof = _trace(lambda: ex.execute_batch(assignment[None],
-                                                     repeats=1))
+    traced_s, prof, _ = _trace(lambda: ex.execute_batch(assignment[None],
+                                                        repeats=1))
     evs = sorted((e.time_range.start, e.time_range.end,
                   e.device_resource_id) for e in prof.events()
                  if str(e.device_type).endswith("CUDA"))
@@ -3416,6 +3724,12 @@ def main() -> int:
     launches["flash_attention_mma"] = gemma_launches["flash_fwd_mma"]
     del params, res
     torch.cuda.empty_cache()
+
+    # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
+    # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).
+    # It runs beside the other serving paths: after the training paths,
+    # its profiler sessions lost launches (PERF.md, Findings)
+    by_name["mamba2_scan"]["xlstm"] = xlstm_path(dev)
 
     # path 4: training, Stage I and Stage II (gnn_mp's pair under autograd,
     # wc_oracle's wc_trips scoring every reward batch)

@@ -23,7 +23,9 @@
 // What bounds it on this card: operations.  At zamba2's prefill (B*H =
 //   64, S = 2048, L = 256, N = 64, P = 256) the causal products need
 //   1.7e10 fp32 flops (0.26 ms at the 67 TFLOP/s of the CUDA cores)
-//   against ~280 MB of inputs and outputs (0.08 ms).  TF32 on the tensor
+//   against ~280 MB of inputs and outputs (0.08 ms); at xLSTM's mLSTM
+//   prefill (B*H = 16, N = 1024, P = 1025 with the normalizer channel,
+//   q and k per head) 1.6e11 flops (2.3 ms) against 0.67 GB.  TF32 on the tensor
 //   cores (495 TFLOP/s) keeps 11 significant bits, which misses the 1e-4
 //   bar of the fp32 reference; so every product is 3xTF32: x = hi + lo
 //   with hi and lo each rounded to TF32 as cvt.rna.tf32.f32 rounds, and
@@ -42,12 +44,14 @@
 //   past S, rows past L, columns past N or P load as zeros):
 //   1. ssd_qk_scores: G = q kᵀ for the lower 64 x 64 tiles of each chunk,
 //      once per (b, chunk) when q and k are broadcast over heads (head
-//      stride 0), else once per (b*h, chunk); never per P tile.  Written
-//      to a scratch the wrapper allocates (5.2 MB at the serving shape)
-//      and read by the heads from L2.
+//      stride 0), else once per (b*h, chunk); never per P tile; a loop
+//      over 64-wide tiles of N.  Written to a scratch the wrapper
+//      allocates (5.2 MB at the serving shape) and read by the heads
+//      from L2.
 //   2. ssd_chunk_state: dS_c = (w v)ᵀ k with w[s] = exp(cum[L-1]-cum[s]),
-//      per (b*h, chunk, 128 columns of P), into a (B*H, n_chunks, P, N)
-//      scratch: 1,024 independent blocks at the serving shape.
+//      per (b*h, chunk, 128 columns of P, 64 columns of N), into a (B*H,
+//      n_chunks, P, N) scratch: 1,024 independent blocks at zamba2's
+//      serving shape, 18,432 at xLSTM's.
 //   3. ssd_state_pass: per (b*h) and element of the (P, N) state, walk
 //      the chunks in order: overwrite dS_c with the state entering chunk
 //      c, then state = exp(cum[L-1]) state + dS_c; write the final state.
@@ -56,8 +60,12 @@
 //      y = exp(cum[t]) q S_inᵀ + (G ∘ M) v, M[t, s] = exp(cum[t] - cum[s])
 //      for s <= t, factored off the diagonal tile so that only that tile
 //      is decayed and masked element by element; the key loop stops at
-//      the diagonal.  4,096 blocks at the serving shape, the heaviest t
-//      tiles first.
+//      the diagonal.  One double-buffered pipeline walks the 64-wide
+//      tiles of N of q S_inᵀ, then the key tiles.  4,096 blocks at the
+//      serving shape, the heaviest t tiles first.
+//   v and y rows are read and written at a pitch ldv >= P (the wrapper
+//   pads P to a multiple of 4, so that xLSTM's P = 1025 keeps every tile
+//   16-byte aligned); the part-empty last P tile loads zeros past P.
 //   Passes 2 and 4 run eight warps of 32 x 32 and two blocks an SM (107 KB
 //   of shared memory each), 264 blocks in flight on 132 SMs.
 #include <cuda_runtime.h>
@@ -68,7 +76,7 @@ namespace {
 constexpr int kT = 64;               // rows of a tile; its t and s extent
 constexpr int kTile = kT * kT;       // floats of one stored score tile
 constexpr int kPT = 128;             // columns of P per block (passes 2, 4)
-constexpr int kN = 64;               // largest state dim N
+constexpr int kMaxN = 1024;          // largest state dim N
 constexpr int kThreads = 128;        // four warps (pass 1)
 constexpr int kWideThreads = 256;    // eight warps (passes 2, 4)
 constexpr int kLdR = kT + 4;         // stride of tiles whose fragments walk
@@ -261,7 +269,8 @@ __device__ __forceinline__ void store_acc(float* out, int64_t ld, int rows,
 // ------------------------------------------------- pass 1: q kᵀ scores
 // grid (lower tiles of a chunk, n_chunks, B or B*H); warps 2 x 2 of 32 x
 // 32.  Tile x of a chunk is (ti, tj), tj <= ti, at x = ti (ti + 1) / 2 +
-// tj; stored row-major.
+// tj; stored row-major.  The depth N is walked in 64-wide tiles, one
+// tile of q and of k in shared memory at a time.
 __global__ void __launch_bounds__(kThreads)
 ssd_qk_scores(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ scores, int S, int H, int N, int L,
@@ -277,45 +286,52 @@ ssd_qk_scores(const float* __restrict__ q, const float* __restrict__ k,
   const int c0 = c * L, t0 = ti * kT, s0 = tj * kT;
   if (c0 + t0 >= S) return;          // rows past S: never read by pass 4
   const int b = shared ? gi : gi / H, h = shared ? 0 : gi % H;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + h * ksh;
-  load_tile<kT, kThreads>(Qs, kLdR, qb + (c0 + t0) * qss, qss,
-                          min(L - t0, S - c0 - t0), N);
-  load_tile<kT, kThreads>(Ks, kLdR, kb + (c0 + s0) * kss, kss,
-                          min(L - s0, S - c0 - s0), N);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
+  const float* qt = q + b * qsb + h * qsh + (c0 + t0) * qss;
+  const float* kt = k + b * ksb + h * ksh + (c0 + s0) * kss;
+  const int t_rows = min(L - t0, S - c0 - t0);
+  const int s_rows = min(L - s0, S - c0 - s0);
   const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   float acc[2][4][4] = {};
-  // A(t, n) = Qs[t][n]; B(n, s) = Ks[s][n]
-  warp_mma<false, 2>(Qs + wm * kLdR, kLdR, 1, nullptr, Ks + wn * kLdR, 1,
-                     kLdR, acc);
+  for (int n0 = 0; n0 < N; n0 += kT) {
+    if (n0) __syncthreads();         // the last tile is read: overwrite it
+    load_tile<kT, kThreads>(Qs, kLdR, qt + n0, qss, t_rows, N - n0);
+    load_tile<kT, kThreads>(Ks, kLdR, kt + n0, kss, s_rows, N - n0);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    // A(t, n) = Qs[t][n]; B(n, s) = Ks[s][n]
+    warp_mma<false, 2>(Qs + wm * kLdR, kLdR, 1, nullptr, Ks + wn * kLdR, 1,
+                       kLdR, acc);
+  }
   float* out = scores + ((static_cast<int64_t>(gi) * n_chunks + c) * n_tiles
                          + x) * kTile;
   store_acc<2>(out + wm * kT + wn, kT, kT, kT, acc);
 }
 
 // ------------------------------------------- pass 2: per-chunk states
-// grid (P / 128, n_chunks, B*H); warps 4 (p) x 2 (n) of 32 x 32.
-// dS_c[p][n] = sum_s w[s] v[s][p] k[s][n] into states[bh][c][p][n].
+// grid (P / 128 x N / 64, n_chunks, B*H), the tile of P fastest; warps 4
+// (p) x 2 (n) of 32 x 32.  dS_c[p][n] = sum_s w[s] v[s][p] k[s][n] into
+// states[bh][c][p][n].
 __global__ void __launch_bounds__(kWideThreads)
 ssd_chunk_state(const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ cum, float* __restrict__ states,
-                int S, int H, int N, int P, int L, int n_chunks, int64_t ksb,
-                int64_t kss, int64_t ksh) {
+                int S, int H, int N, int P, int ldv, int L, int n_chunks,
+                int64_t ksb, int64_t kss, int64_t ksh) {
   extern __shared__ float4 smem4[];
   const int nt = (L + kT - 1) / kT;
   float* w = reinterpret_cast<float*>(smem4);        // [nt * kT]
   float* stage = w + nt * kT;                        // 2 x (Vs, Ks)
   constexpr int kStage = kT * (kLdCP + kLdC);
-  const int p0 = blockIdx.x * kPT, c = blockIdx.y, bh = blockIdx.z;
+  const int p_tiles = (P + kPT - 1) / kPT;
+  const int p0 = (blockIdx.x % p_tiles) * kPT;
+  const int n0 = (blockIdx.x / p_tiles) * kT;
+  const int c = blockIdx.y, bh = blockIdx.z;
   const int b = bh / H, h = bh % H, c0 = c * L;
   const int n_used = min(nt, (S - c0 + kT - 1) / kT);  // tiles before S
-  const float* kb = k + b * ksb + h * ksh;
-  const int64_t vrow = static_cast<int64_t>(H) * P;
-  const float* vb = v + (static_cast<int64_t>(b) * S * H + h) * P + p0;
+  const float* kb = k + b * ksb + h * ksh + n0;
+  const int64_t vrow = static_cast<int64_t>(H) * ldv;
+  const float* vb = v + (static_cast<int64_t>(b) * S * H + h) * ldv + p0;
   const float* cb = cum + (static_cast<int64_t>(bh) * n_chunks + c) * L;
   auto load = [&](int j) {
     float* Vs = stage + (j & 1) * kStage;            // [s][p]
@@ -324,7 +340,7 @@ ssd_chunk_state(const float* __restrict__ k, const float* __restrict__ v,
     load_tile<kPT, kWideThreads>(Vs, kLdCP, vb + (c0 + s0) * vrow, vrow,
                                  rows, P - p0);
     load_tile<kT, kWideThreads>(Ks, kLdC, kb + (c0 + s0) * kss, kss, rows,
-                                N);
+                                N - n0);
     cp_commit();
   };
   load(0);
@@ -346,8 +362,8 @@ ssd_chunk_state(const float* __restrict__ k, const float* __restrict__ v,
     __syncthreads();                 // tile j is read before it is reloaded
   }
   float* out = states + ((static_cast<int64_t>(bh) * n_chunks + c) * P + p0
-                         + wm) * N + wn;
-  store_acc<2>(out, N, P - p0 - wm, N - wn, acc);
+                         + wm) * N + n0 + wn;
+  store_acc<2>(out, N, P - p0 - wm, N - n0 - wn, acc);
 }
 
 // ---------------------------------------------------- pass 3: the chain
@@ -392,29 +408,31 @@ ssd_state_pass(const float* __restrict__ cum,
 //   y = a ∘ (exp(cum[t0]) q S_inᵀ + sum_{s < t0} G[:, s] b[s] v[s])
 //       + (G ∘ M)_diagonal v_diagonal,
 // so only the diagonal tile is masked and decayed element by element.
-__global__ void __launch_bounds__(kWideThreads)
+// kOneTileN: N <= 64 (zamba2), q S_inᵀ in one tile of N, the loop over
+// the tiles of N compiled out.  At most 128 registers a thread, so that
+// two blocks fit an SM.
+template <bool kOneTileN>
+__global__ void __launch_bounds__(kWideThreads, 2)
 ssd_chunk_y(const float* __restrict__ q, const float* __restrict__ v,
             const float* __restrict__ cum, const float* __restrict__ scores,
             const float* __restrict__ states, float* __restrict__ y, int S,
-            int H, int N, int P, int L, int n_chunks, int n_tiles,
+            int H, int N, int P, int ldv, int L, int n_chunks, int n_tiles,
             int shared, int64_t qsb, int64_t qss, int64_t qsh) {
   extern __shared__ float4 smem4[];
   const int nt = (L + kT - 1) / kT;
   float* cs = reinterpret_cast<float*>(smem4);       // cum of the chunk
   float* dec = cs + nt * kT;                         // b[s], s < t0
-  float* stage = dec + nt * kT;                      // 2 x (Gs, Vs)
+  float* stage = dec + nt * kT;          // 2 x (Qs, Ss) or (Gs, Vs)
   constexpr int kStage = kT * (kLdR + kLdCP);
-  float* Qs = stage + kStage;                        // [t][n], in stage 1
-  float* Ss = Qs + kT * kLdR;                        // state in, [p][n]
   const int p0 = blockIdx.x * kPT;
   const int ti = nt - 1 - static_cast<int>(blockIdx.y) % nt;  // heavy first
   const int c = blockIdx.y / nt, bh = blockIdx.z;
   const int c0 = c * L, t0 = ti * kT;
   if (c0 + t0 >= S) return;
   const int b = bh / H, h = bh % H;
-  const float* qb = q + b * qsb + h * qsh;
-  const int64_t vrow = static_cast<int64_t>(H) * P;
-  const float* vb = v + (static_cast<int64_t>(b) * S * H + h) * P + p0;
+  const float* qt = q + b * qsb + h * qsh + (c0 + t0) * qss;
+  const int64_t vrow = static_cast<int64_t>(H) * ldv;
+  const float* vb = v + (static_cast<int64_t>(b) * S * H + h) * ldv + p0;
   const float* gb = scores + ((static_cast<int64_t>(shared ? b : bh)
                                * n_chunks + c) * n_tiles
                               + ti * (ti + 1) / 2) * kTile;
@@ -422,15 +440,23 @@ ssd_chunk_y(const float* __restrict__ q, const float* __restrict__ v,
   const float* sb = states + ((static_cast<int64_t>(bh) * n_chunks + c) * P
                               + p0) * N;
 
-  load_tile<kT, kWideThreads>(Qs, kLdR, qb + (c0 + t0) * qss, qss,
-                              min(L - t0, S - c0 - t0), N);
-  load_tile<kT, kWideThreads>(Ss, kLdR, sb, N, P - p0, N);
-  load_tile<kT, kWideThreads>(Ss + kT * kLdR, kLdR, sb + kT * N, N,
-                              P - p0 - kT, N);
-  cp_commit();
+  // stage of the n-th tile of N (Qs, Ss) and of key tile j (Gs, Vs): one
+  // double-buffered sequence, the tiles of N first
+  const int n_steps = kOneTileN ? 1 : (N + kT - 1) / kT;
+  auto load_qs = [&](int u) {
+    float* Qs = stage + (u & 1) * kStage;            // [t][n]
+    float* Ss = Qs + kT * kLdR;                      // state in, [p][n]
+    const int n0 = u * kT;
+    load_tile<kT, kWideThreads>(Qs, kLdR, qt + n0, qss,
+                                min(L - t0, S - c0 - t0), N - n0);
+    load_tile<kT, kWideThreads>(Ss, kLdR, sb + n0, N, P - p0, N - n0);
+    load_tile<kT, kWideThreads>(Ss + kT * kLdR, kLdR, sb + kT * N + n0, N,
+                                P - p0 - kT, N - n0);
+    cp_commit();
+  };
   auto load = [&](int j) {
-    float* Gs = stage + (j & 1) * kStage;            // [t][s]
-    float* Vs = Gs + kT * kLdR;                      // [s][p]
+    float* Gs = stage + ((n_steps + j) & 1) * kStage;  // [t][s]
+    float* Vs = Gs + kT * kLdR;                        // [s][p]
     const int s0 = j * kT;
     load_tile<kT, kWideThreads>(Gs, kLdR,
                                 gb + static_cast<int64_t>(j) * kTile, kT, kT,
@@ -439,22 +465,32 @@ ssd_chunk_y(const float* __restrict__ q, const float* __restrict__ v,
                                  min(L - s0, S - c0 - s0), P - p0);
     cp_commit();
   };
-  load(0);
+  load_qs(0);
   const float ct0 = cb[t0];
   for (int i = threadIdx.x; i < nt * kT; i += kWideThreads) {
     cs[i] = i < L ? cb[i] : 0.f;
     dec[i] = i < t0 ? expf(ct0 - cb[i]) : 0.f;
   }
-  cp_wait<1>();
-  __syncthreads();                   // Qs, Ss, cs and dec are in place
 
   const int wm = (threadIdx.x >> 7) * 32, wn = ((threadIdx.x >> 5) & 3) * 32;
   const int g = (threadIdx.x & 31) >> 2;
   float acc[2][4][4] = {};
-  // inter-chunk: A(t, n) = Qs[t][n], B(n, p) = Ss[p][n]
-  warp_mma<false, 2>(Qs + wm * kLdR, kLdR, 1, nullptr, Ss + wn * kLdR, 1,
-                     kLdR, acc);
-  __syncthreads();                   // Qs, Ss are read: stage 1 is free
+  // inter-chunk: A(t, n) = Qs[t][n], B(n, p) = Ss[p][n] over the tiles of
+  // N; the first key tile loads behind the last of them
+  auto inter = [&](int u) {
+    cp_wait<1>();
+    __syncthreads();                 // tile u (and cs, dec) in place
+    const float* Qs = stage + (u & 1) * kStage;
+    warp_mma<false, 2>(Qs + wm * kLdR, kLdR, 1, nullptr,
+                       Qs + kT * kLdR + wn * kLdR, 1, kLdR, acc);
+    __syncthreads();                 // tile u is read before it is reloaded
+  };
+  for (int u = 0; u + 1 < n_steps; ++u) {
+    load_qs(u + 1);
+    inter(u);
+  }
+  load(0);
+  inter(n_steps - 1);
   const float e0 = expf(ct0);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -468,7 +504,7 @@ ssd_chunk_y(const float* __restrict__ q, const float* __restrict__ v,
     else cp_commit();
     cp_wait<1>();
     __syncthreads();                 // tile j is in shared memory
-    float* Gs = stage + (j & 1) * kStage;
+    float* Gs = stage + ((n_steps + j) & 1) * kStage;
     const float* Vs = Gs + kT * kLdR;
     if (j < ti) {
       // A(t, s) = Gs[t][s] b[s]; B(s, p) = Vs[s][p]
@@ -502,26 +538,30 @@ ssd_chunk_y(const float* __restrict__ q, const float* __restrict__ v,
 
   const int rows = min(L - t0, S - c0 - t0);
   store_acc<2>(y + (static_cast<int64_t>(b) * S + c0 + t0 + wm) * vrow
-                   + h * P + p0 + wn, vrow, rows - wm, P - p0 - wn, acc);
+                   + static_cast<int64_t>(h) * ldv + p0 + wn, vrow,
+               rows - wm, P - p0 - wn, acc);
 }
 
 }  // namespace
 
 // q, k (B, S, H, N) f32 read through element strides (qsb, qss, qsh) and
-// (ksb, kss, ksh) with unit stride on N; v (B, S, H, P) f32 contiguous;
+// (ksb, kss, ksh) with unit stride on N; v (B, S, H, P) f32 with rows at
+// pitch ldv >= P (element (b, s, h, p) at ((b S + s) H + h) ldv + p);
 // cum (B*H, n_chunks*L) f32, the within-chunk cumulative log decay,
 // zero-padded past S; state_in (B, H, P, N) f32 or null for zeros.
 // Scratch from the caller: scores, (B if shared else B*H) x n_chunks x
 // T x 64 x 64 f32 with T = nt (nt + 1) / 2 and nt = ceil(L / 64); states,
 // B*H x n_chunks x P x N f32.  shared != 0 means q and k have head stride
 // 0, and the scores are computed once per batch row.  Writes y (B, S, H,
-// P) and state_out (B, H, P, N).  N <= 64.  Launches the four passes on
+// P, at v's pitch ldv; columns P..ldv-1 are left as they are) and
+// state_out (B, H, P, N).  N <= 1024.  Launches the four passes on
 // `stream`; returns a cudaError_t.
 extern "C" int mamba2_scan_fwd(const void* q, const void* k, const void* v,
                                const void* cum, const void* state_in,
                                void* y, void* state_out, void* scores,
                                void* states, int B, int S, int H, int N,
-                               int P, int L, int n_chunks, int shared,
+                               int P, int ldv, int L, int n_chunks,
+                               int shared,
                                int64_t qsb, int64_t qss, int64_t qsh,
                                int64_t ksb, int64_t kss, int64_t ksh,
                                void* stream) {
@@ -532,17 +572,20 @@ extern "C" int mamba2_scan_fwd(const void* q, const void* k, const void* v,
   const int64_t smem_y =
       (2 * nt * kT + 2 * kT * (kLdR + kLdCP)) * sizeof(float);
   const int64_t rows = static_cast<int64_t>(B) * H;
-  if (N < 1 || N > kN || L < 1 || S < 1 || P < 1 || rows < 1
+  const int p_tiles = (P + kPT - 1) / kPT, n_tiles_n = (N + kT - 1) / kT;
+  if (N < 1 || N > kMaxN || L < 1 || S < 1 || P < 1 || ldv < P || rows < 1
+      || static_cast<int64_t>(P) * N > 0x7fffffff
       || static_cast<int64_t>(n_chunks) * L < S
       || static_cast<int64_t>(n_chunks - 1) * L >= S || rows > 65535
       || static_cast<int64_t>(nt) * n_chunks > 65535 || smem_y > 232448
       || smem_state > 232448 || (shared && (qsh != 0 || ksh != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto chunk_y = N <= kT ? ssd_chunk_y<true> : ssd_chunk_y<false>;
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_state));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_chunk_y,
+    err = cudaFuncSetAttribute(chunk_y,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_y));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -553,24 +596,23 @@ extern "C" int mamba2_scan_fwd(const void* q, const void* k, const void* v,
   const float* cf = static_cast<const float*>(cum);
   float* scr = static_cast<float*>(scores);
   float* sts = static_cast<float*>(states);
-  const int p_tiles = (P + kPT - 1) / kPT;
 
   ssd_qk_scores<<<dim3(n_tiles, n_chunks, shared ? B : B * H), kThreads, 0,
                   st>>>(qf, kf, scr, S, H, N, L, n_chunks, n_tiles, shared,
                         qsb, qss, qsh, ksb, kss, ksh);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_state<<<dim3(p_tiles, n_chunks, B * H), kWideThreads, smem_state,
-                    st>>>(kf, vf, cf, sts, S, H, N, P, L, n_chunks, ksb, kss,
-                          ksh);
+  ssd_chunk_state<<<dim3(p_tiles * n_tiles_n, n_chunks, B * H), kWideThreads,
+                    smem_state, st>>>(kf, vf, cf, sts, S, H, N, P, ldv, L,
+                                      n_chunks, ksb, kss, ksh);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   ssd_state_pass<<<dim3((P * N + kPassThreads - 1) / kPassThreads, B * H),
                    kPassThreads, 0, st>>>(
       cf, static_cast<const float*>(state_in), sts,
       static_cast<float*>(state_out), P * N, L, n_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_y<<<dim3(p_tiles, nt * n_chunks, B * H), kWideThreads, smem_y,
-                st>>>(
-      qf, vf, cf, scr, sts, static_cast<float*>(y), S, H, N, P, L, n_chunks,
-      n_tiles, shared, qsb, qss, qsh);
+  chunk_y<<<dim3(p_tiles, nt * n_chunks, B * H), kWideThreads, smem_y,
+            st>>>(
+      qf, vf, cf, scr, sts, static_cast<float*>(y), S, H, N, P, ldv, L,
+      n_chunks, n_tiles, shared, qsb, qss, qsh);
   return static_cast<int>(cudaGetLastError());
 }

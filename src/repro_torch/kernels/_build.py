@@ -35,7 +35,7 @@ ENTRY_POINTS = {
     "flash_attention_sm90": {"flash_attention_wgmma_fwd":
                              [P, P, P, P, I, I, I, I, I, I, P]},
     "mamba2_scan": {"mamba2_scan_fwd":
-                    [P] * 9 + [I] * 8 + [I64] * 6 + [P]},
+                    [P] * 9 + [I] * 9 + [I64] * 6 + [P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -10,13 +10,24 @@ kernel, after ``log_a`` is zero-padded to a multiple of the chunk.  The
 kernel treats q, k and v past S as that same zero padding, so a ragged S
 needs no padded copy of them.  q and k are read through their strides:
 ``mamba2_forward`` passes one (B, S, N) tensor broadcast over the heads
-(head stride 0), which is never materialised.
+(head stride 0), which is never materialised; ``mlstm_forward`` passes
+per-head q and k.
+
+The kernel takes a state dim N up to ``MAX_STATE_DIM`` (1024: xLSTM's
+mLSTM has N = P = 1024 a head), walking N in 64-wide tiles, and any P.
+v and y rows are kept at a pitch of P rounded up to a multiple of 4, so
+that every tile of v stays 16-byte aligned; y comes back as a view of
+its first P columns.  A v built in ``pitched(B, S, H, P)`` (as
+``mlstm_forward`` builds xLSTM's 1025 columns: the values and the
+normalizer channel) is read in place; any other v of such a P is copied
+into a padded buffer first.
 
 One call launches four passes (``KERNELS``, in order): the q kᵀ scores
 (once per batch row when q and k are broadcast over the heads, else once
 per head), the per-chunk states, the state chain over the chunks, and the
 chunk outputs.  The wrapper allocates their scratch: the scores' lower
-64 x 64 tiles and the (B*H, n_chunks, P, N) chunk states.
+64 x 64 tiles and the (B*H, n_chunks, P, N) chunk states (537 MB a call
+at xLSTM's prefill).
 """
 from __future__ import annotations
 
@@ -27,7 +38,7 @@ from .. import _build
 from .ref import ssd_scan_ref
 
 BACKENDS = ("torch", "cuda")
-MAX_STATE_DIM = 64
+MAX_STATE_DIM = 1024
 TILE = 64                    # the kernels' tile of positions
 # the kernels one call launches, in order (profiler names)
 KERNELS = ("ssd_qk_scores", "ssd_chunk_state", "ssd_state_pass",
@@ -49,6 +60,30 @@ def chunk_cumsum(log_a: torch.Tensor, chunk: int) -> torch.Tensor:
     return cum.permute(0, 3, 1, 2).contiguous().view(B * H, -1)
 
 
+def pitched(B: int, S: int, H: int, P: int, dtype=torch.float32,
+            device=None) -> torch.Tensor:
+    """An empty (B, S, H, P) tensor whose rows sit at the kernel's pitch
+    (P rounded up to a multiple of 4): ``ssd_scan`` reads it as v in
+    place, where a contiguous v of such a P is copied into a padded
+    buffer first.  The columns past P are never read."""
+    ldv = -(-P // 4) * 4
+    return torch.empty(B, S, H, ldv, dtype=dtype, device=device)[..., :P]
+
+
+def _row_pitch(v: torch.Tensor) -> int | None:
+    """The pitch of v's rows, if v is laid out as a contiguous tensor of
+    that last dim cut to P columns (size-1 dims' strides aside); else
+    None."""
+    B, S, H, P = v.shape
+    ld = v.stride(2) if H > 1 else (v.stride(1) if S > 1 else
+                                    (v.stride(0) if B > 1 else P))
+    want = (S * H * ld, H * ld, ld, 1)
+    if ld < P or any(n > 1 and st != w for n, st, w
+                     in zip(v.shape, v.stride(), want)):
+        return None
+    return ld
+
+
 def _launch(q, k, v, log_a, chunk, state):
     global launches
     B, S, H, N = q.shape
@@ -60,9 +95,10 @@ def _launch(q, k, v, log_a, chunk, state):
                 or tuple(t.shape) != shape):
             raise ValueError(f"mamba2_scan: {name} must be float32 {shape} "
                              f"on {q.device}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or not v.is_contiguous():
+    ldv = _row_pitch(v)                  # v's and y's row pitch
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or ldv is None:
         raise ValueError("mamba2_scan: q and k need a unit stride on N and "
-                         "v must be contiguous")
+                         "v must be contiguous or built in pitched()")
     if state is not None and (state.device != q.device
                               or state.dtype != torch.float32
                               or tuple(state.shape) != (B, H, P, N)
@@ -72,10 +108,13 @@ def _launch(q, k, v, log_a, chunk, state):
     if not 1 <= N <= MAX_STATE_DIM or chunk < 1:
         raise ValueError(f"mamba2_scan: state dim {N} not in "
                          f"[1, {MAX_STATE_DIM}] or chunk {chunk} < 1")
-    y = torch.empty(B, S, H, P, dtype=torch.float32, device=q.device)
+    if ldv != -(-P // 4) * 4:
+        ldv = -(-P // 4) * 4
+        v = F.pad(v, (0, ldv - P))
+    y = torch.empty(B, S, H, ldv, dtype=torch.float32, device=q.device)
     st = torch.empty(B, H, P, N, dtype=torch.float32, device=q.device)
     if S == 0 or P == 0 or B * H == 0:
-        return y, (st.zero_() if state is None else st.copy_(state))
+        return y[..., :P], (st.zero_() if state is None else st.copy_(state))
     cum = chunk_cumsum(log_a, chunk)
     n_chunks = cum.shape[1] // chunk
     shared = q.stride(2) == 0 and k.stride(2) == 0
@@ -91,11 +130,11 @@ def _launch(q, k, v, log_a, chunk, state):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cum.data_ptr(),
         0 if state is None else state.data_ptr(), y.data_ptr(),
         st.data_ptr(), scores.data_ptr(), states.data_ptr(), B, S, H, N, P,
-        chunk, n_chunks, int(shared), q.stride(0), q.stride(1),
+        ldv, chunk, n_chunks, int(shared), q.stride(0), q.stride(1),
         q.stride(2), k.stride(0), k.stride(1), k.stride(2), stream)
     _build.check("mamba2_scan", rc)
     launches += 1
-    return y, st
+    return y[..., :P], st
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

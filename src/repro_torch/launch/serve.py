@@ -5,12 +5,15 @@
         --batch 4 --prompt-len 2048 --gen 32          # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1p2b \\
         --reduced --device cpu                        # a smoke run on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b \\
+        --batch 4 --prompt-len 2048 --gen 32          # xLSTM on the GPU
 
 Weights are random, drawn by torch from ``--seed`` at the config's width,
 and cast once to the compute dtype.  The device defaults to ``cuda``;
 without a GPU that raises.  Prefill runs the ``flash_attention`` and
-``mamba2_scan`` kernels on the card.  Prints prefill seconds, decode ms
-per step and tokens per second, each after a device sync.
+``mamba2_scan`` kernels on the card (the latter for Mamba2 and mLSTM
+blocks).  Prints prefill seconds, decode ms per step and tokens per
+second, each after a device sync.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Feed-forward layers (twin of ``repro/models/mlp.py``): the dense FFN.
 
-The token-choice MoE of the reference is not ported yet (ROADMAP A11);
+The token-choice MoE of the reference (granite, qwen3-moe) is the next
+part of the model substrate to port (ROADMAP A11.2); until then
 ``models/transformer.py`` raises ``NotImplementedError`` for an MoE
 config.
 """

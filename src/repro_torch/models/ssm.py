@@ -1,17 +1,27 @@
-"""State-space blocks (twin of ``repro/models/ssm.py``): Mamba2 (SSD).
+"""State-space / recurrent blocks (twin of ``repro/models/ssm.py``):
+Mamba2 (SSD), mLSTM, sLSTM.
 
-Mamba2 is gated linear attention: a (P, N) matrix state per head, decayed
-by a scalar gate and updated by v kᵀ.  The chunked scan core
-(``chunked_gla``, plain) lives beside its kernel in
-``kernels/mamba2_scan/ref.py`` and is re-exported here; prefill runs the
-kernel through ``kernels/mamba2_scan/ops.py::ssd_scan``.  Decode (``*_step``)
-carries O(1) state.
+Mamba2 and mLSTM are both gated linear attention: a (P, N) matrix state
+per head, decayed by a scalar gate and updated by v kᵀ.  The chunked scan
+core (``chunked_gla``, plain) lives beside its kernel in
+``kernels/mamba2_scan/ref.py`` and is re-exported here; prefill of both
+runs the kernel through ``kernels/mamba2_scan/ops.py::ssd_scan``.  Decode
+(``*_step``) carries O(1) state and runs the plain ``gla_step``, as the
+reference's decode has no kernel either.
 
-The reference's simplification is kept: the short causal conv is applied
-to the input branch only.  mLSTM and sLSTM (xlstm) are not ported yet
-(ROADMAP A11).
+sLSTM keeps the exponential-gated scalar recurrence with the
+max-stabilizer, which is sequential: a Python loop over time (the
+reference's ``lax.scan``), in plain PyTorch.  No TPU kernel stands behind
+it, and none is ported here.
+
+The reference's simplifications are kept: Mamba2's short causal conv is
+applied to the input branch only; mLSTM omits the per-step
+max-stabilizer in the chunked path; sLSTM has per-head recurrent weights
+with a single projection block.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -105,3 +115,127 @@ def mamba2_step(params, x, cfg: SSMConfig, state, conv_tail):
     y = y + params["D_skip"][None, :, None] * xh
     y = y.reshape(B, di).to(x.dtype) * F.silu(z)
     return (y @ params["w_out"])[:, None, :], state, hist[:, 1:]
+
+
+# ------------------------------------------------------------------ mLSTM
+def init_mlstm(gen: torch.Generator, d_model: int, cfg: SSMConfig,
+               dtype=torch.float32) -> dict:
+    di = cfg.expand * d_model
+    H = cfg.n_heads
+    return {
+        "w_in": dense_init(gen, d_model, 2 * di, dtype),      # x and z-gate
+        "w_q": dense_init(gen, di, di, dtype),
+        "w_k": dense_init(gen, di, di, dtype),
+        "w_v": dense_init(gen, di, di, dtype),
+        "w_if": dense_init(gen, di, 2 * H, dtype),            # i, f gates
+        "w_out": dense_init(gen, di, d_model, dtype),
+    }
+
+
+def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
+                state, step: bool, backend: str = "cuda"):
+    """q, k (k / sqrt(P)) and v per head in fp32, the input gate
+    exp(clip(., -10, 5)) and the log forget gate logsigmoid(.); v is
+    extended by a channel of the input gate that carries the normalizer
+    n, so the scan's state is (B, H, P + 1, P).  Prefill runs ``ssd_scan``
+    (the kernel on the card), decode ``gla_step``."""
+    H = cfg.n_heads
+    P = di // H
+    q = at_least_f32((xin @ params["w_q"]).reshape(B, S, H, P))
+    k = at_least_f32((xin @ params["w_k"]).reshape(B, S, H, P)) \
+        / math.sqrt(P)
+    v = at_least_f32((xin @ params["w_v"]).reshape(B, S, H, P))
+    gates = at_least_f32(xin @ params["w_if"]).reshape(B, S, 2 * H)
+    i_g = torch.exp(gates[..., :H].clamp(-10.0, 5.0))        # (B, S, H)
+    log_f = F.logsigmoid(gates[..., H:])                     # <= 0
+    # v·i and i written into one buffer at the kernel's row pitch
+    v_aug = ssd_ops.pitched(B, S, H, P + 1, v.dtype, v.device)
+    torch.mul(v, i_g[..., None], out=v_aug[..., :P])
+    v_aug[..., P] = i_g
+    if step:
+        y_aug, state = gla_step(q[:, 0], k[:, 0], v_aug[:, 0], log_f[:, 0],
+                                state)
+        y_aug = y_aug[:, None]
+    else:
+        y_aug, state = ssd_ops.ssd_scan(q, k, v_aug, log_f, cfg.chunk, state,
+                                        backend=backend)
+    y, n = y_aug[..., :P], y_aug[..., P:]
+    y = y / n.abs().clamp_min(1.0)
+    return y.reshape(B, S, di), state
+
+
+def mlstm_forward(params, x, cfg: SSMConfig, state=None,
+                  backend: str = "cuda"):
+    """x: (B, S, D) -> (B, S, D) and the final state (B, H, P + 1, P),
+    P = expand * D / H; ``state`` None starts from zeros."""
+    B, S, D = x.shape
+    di = cfg.expand * D
+    xin, z = (x @ params["w_in"]).chunk(2, dim=-1)
+    y, state = _mlstm_core(params, xin, cfg, B, S, di, state, step=False,
+                           backend=backend)
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ params["w_out"], state
+
+
+def mlstm_step(params, x, cfg: SSMConfig, state):
+    """Decode one token.  x: (B, 1, D); state: (B, H, P + 1, P)."""
+    B, _, D = x.shape
+    di = cfg.expand * D
+    xin, z = (x @ params["w_in"]).chunk(2, dim=-1)
+    y, state = _mlstm_core(params, xin, cfg, B, 1, di, state, step=True)
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ params["w_out"], state
+
+
+# ------------------------------------------------------------------ sLSTM
+def init_slstm(gen: torch.Generator, d_model: int, cfg: SSMConfig,
+               dtype=torch.float32) -> dict:
+    H = cfg.n_heads
+    P = d_model // H
+    return {
+        "w_gates": dense_init(gen, d_model, 4 * d_model, dtype),
+        # per-head recurrent weights (H, P, 4P)
+        "r_gates": _normal(gen, (H, P, 4 * P), dtype) * math.sqrt(1.0 / P),
+        "w_out": dense_init(gen, d_model, d_model, dtype),
+    }
+
+
+def slstm_init_state(shape, dtype=torch.float32, device=None) -> tuple:
+    """(c, n, m, h), each of ``shape`` (..., B, H, P): zeros, and m at
+    -1e30."""
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return (z, z, z - 1e30, z)
+
+
+def slstm_forward(params, x, cfg: SSMConfig, state=None):
+    """Sequential exponential-gated scalar LSTM with the max-stabilizer,
+    one step per position.  x: (B, S, D); state: (c, n, m, h), each (B,
+    H, P), None for ``slstm_init_state``'s."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    P = D // H
+    wx = at_least_f32(x @ params["w_gates"]).reshape(B, S, H, 4 * P)
+    r = at_least_f32(params["r_gates"])
+    if state is None:
+        state = slstm_init_state((B, H, P), wx.dtype, x.device)
+    c, n, m, h = state
+    hs = []
+    for t in range(S):
+        g = wx[:, t] + torch.einsum("bhp,hpq->bhq", h, r)    # (B, H, 4P)
+        zi, ii, ff, oo = g.split(P, dim=-1)
+        log_i = ii.clamp(-10.0, 5.0)
+        log_f = F.logsigmoid(ff)
+        m_new = torch.maximum(log_f + m, log_i)
+        i_p = torch.exp(log_i - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        c = f_p * c + i_p * torch.tanh(zi)
+        n = f_p * n + i_p
+        h = torch.sigmoid(oo) * c / n.abs().clamp_min(1.0)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    return y @ params["w_out"], (c, n, m, h)
+
+
+def slstm_step(params, x, cfg: SSMConfig, state):
+    return slstm_forward(params, x, cfg, state)

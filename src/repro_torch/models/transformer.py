@@ -1,6 +1,7 @@
 """Generic decoder-only model (twin of ``repro/models/transformer.py``),
-ported for the block kinds ``attn``, ``attn_shared`` and ``mamba`` with a
-dense FFN: the serving path of zamba2 and of the dense configs.
+ported for the block kinds ``attn``, ``attn_shared``, ``mamba``,
+``mlstm`` and ``slstm`` with a dense FFN: the serving path of zamba2,
+xlstm and the dense configs.
 
 A model is a ``block_pattern`` unit tiled over depth.  Parameters keep the
 reference's layout: ``params["unit"][i]`` holds the weights of unit
@@ -14,18 +15,18 @@ annotations have no counterpart on one device.
 Modes: 'train' (full-sequence forward; no loss or backward here),
 'prefill' (the same forward, filling the decode state) and 'decode' (one
 token against the carried state).  Train and prefill run attention through
-the ``flash_attention`` kernel and the Mamba2 scan through the
-``mamba2_scan`` kernel; both backends default to "cuda" on the card and
-"torch" (the plain versions) on the CPU.
+the ``flash_attention`` kernel and the Mamba2 and mLSTM scans through
+the ``mamba2_scan`` kernel; both backends default to "cuda" on the card
+and "torch" (the plain versions) on the CPU.  The sLSTM recurrence is a
+plain loop over time on either.
 
 State: decode writes the new token's K and V into the caches it is given,
 in place, and prefill writes the prompt's (the reference returns updated
-copies; here a cache copy per step is avoided).  SSD states and conv
-tails are returned as new tensors, as in the reference.
+copies; here a cache copy per step is avoided).  SSD, mLSTM and sLSTM
+states and conv tails are returned as new tensors, as in the reference.
 
-Not ported yet (ROADMAP A11): the ``mlstm`` / ``slstm`` kinds, MoE, the
-audio and vision frontends, and training (``lm_loss``); they raise
-``NotImplementedError``.
+Not ported yet (ROADMAP A11): MoE, the audio and vision frontends, and
+training (``lm_loss``); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,10 +42,13 @@ from .common import (apply_norm, apply_rope, cast_block_params, dense_init,
                      dtype_of, embed_init, softcap)
 from .config import ModelConfig
 from .mlp import dense_ffn, init_dense_ffn
-from .ssm import init_mamba2, mamba2_forward, mamba2_step
+from .ssm import (init_mamba2, init_mlstm, init_slstm, mamba2_forward,
+                  mamba2_step, mlstm_forward, mlstm_step, slstm_forward,
+                  slstm_init_state, slstm_step)
 
 ATTN_KINDS = ("attn", "attn_shared")
-PORTED_KINDS = ATTN_KINDS + ("mamba",)
+SSM_INIT = {"mamba": init_mamba2, "mlstm": init_mlstm, "slstm": init_slstm}
+PORTED_KINDS = ATTN_KINDS + tuple(SSM_INIT)
 UNPORTED = "not ported to repro_torch yet (ROADMAP A11)"
 
 
@@ -93,7 +97,7 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype):
         return _init_attn_block(gen, cfg, dtype)
     norm = ({"ln1": _zeros(gen, cfg.d_model, dtype=dtype)}
             if cfg.norm == "rms" else {})
-    return {**norm, "core": init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)}
+    return {**norm, "core": SSM_INIT[kind](gen, cfg.d_model, cfg.ssm, dtype)}
 
 
 def unit_and_reps(cfg: ModelConfig):
@@ -104,11 +108,14 @@ def unit_and_reps(cfg: ModelConfig):
 
 
 def _stack(trees):
+    """Stack a list of like trees (dicts, tuples, tensors) on a new axis 0."""
     if not trees:
         raise ValueError("a model needs at least one repetition of its unit")
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack(list(parts)) for parts in zip(*trees))
     return torch.stack(trees)
 
 
@@ -160,8 +167,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: str | torch.device = "cuda") -> dict:
     """Per-layer decode state, stacked like the params (unit/rem lists):
     (K cache, V cache) per attention occurrence, (SSD state, conv tail)
-    per Mamba2 block.  Caches and tails in ``dtype``, SSD states fp32
-    (fp64 when ``dtype`` is)."""
+    per Mamba2 block, the (B, H, P + 1, P) matrix state per mLSTM block,
+    (c, n, m, h) per sLSTM block.  Caches and tails in ``dtype``, the
+    recurrent states fp32 (fp64 when ``dtype`` is)."""
     check_supported(cfg)
     device = resolve_device(device)
     unit, reps, rem = unit_and_reps(cfg)
@@ -174,9 +182,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
             return (z(*kv), z(*kv))          # two buffers: written in place
         di = cfg.ssm.expand * cfg.d_model
         H, N = cfg.ssm.n_heads, cfg.ssm.state_dim
+        P = di // H
         wide = torch.float64 if dtype == torch.float64 else torch.float32
-        return (z(H, di // H, N, dt=wide),
-                z(cfg.ssm.conv_width - 1, di))
+        if kind == "mlstm":
+            return z(H, P + 1, P, dt=wide)
+        if kind == "slstm":
+            return slstm_init_state((*lead, batch, H, cfg.d_model // H),
+                                    wide, device)
+        return (z(H, P, N, dt=wide), z(cfg.ssm.conv_width - 1, di))
 
     return {"unit": [one(kind, (reps,)) for kind in unit],
             "rem": [one(kind) for kind in rem]}
@@ -220,8 +233,21 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
     return x + dense_ffn(p["ffn"], h2, cfg.act), cache
 
 
-def _mamba_block_apply(p, cfg: ModelConfig, x, mode, state, backend):
+def _ssm_block_apply(kind, p, cfg: ModelConfig, x, mode, state, backend):
     h = apply_norm(cfg.norm, x, p.get("ln1"))
+    if kind == "mlstm":
+        if mode == "decode":
+            y, st = mlstm_step(p["core"], h, cfg.ssm, state)
+        else:
+            y, st = mlstm_forward(p["core"], h, cfg.ssm, state,
+                                  backend=backend)
+        return x + y, st
+    if kind == "slstm":
+        if mode == "decode":
+            y, st = slstm_step(p["core"], h, cfg.ssm, state)
+        else:
+            y, st = slstm_forward(p["core"], h, cfg.ssm, state)
+        return x + y, st
     if mode == "decode":
         ssd, tail = state
         y, ssd, tail = mamba2_step(p["core"], h, cfg.ssm, ssd, tail)
@@ -284,7 +310,7 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
             w = shared if kind == "attn_shared" else p
             return _attn_block_apply(w, cfg, x, positions, mode, st,
                                      cache_pos, attn_backend)
-        return _mamba_block_apply(p, cfg, x, mode, st, ssm_backend)
+        return _ssm_block_apply(kind, p, cfg, x, mode, st, ssm_backend)
 
     new_unit = [[] for _ in unit]
     for r in range(reps):
@@ -304,8 +330,7 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     if state is not None:
         new_state = {"rem": new_rem, "unit": [
             state["unit"][i] if kind in ATTN_KINDS     # written in place
-            else tuple(torch.stack(parts) for parts in zip(*new_unit[i]))
-            for i, kind in enumerate(unit)]}
+            else _stack(new_unit[i]) for i, kind in enumerate(unit)]}
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
     logits = _lm_head(params, cfg, x)
     return logits, new_state, torch.zeros((), device=x.device)

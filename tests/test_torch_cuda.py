@@ -33,7 +33,9 @@ handed out again across streams between runs without a wrong value;
 ``flash_attention`` within 2e-5 (fp32) / 2e-2 (bf16, fp16), bf16 at d 64
 and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 ``flash_fwd_mma``, and ``mamba2_scan`` within 1e-4 scaled by max(|ref|, 1), the
-bars of tests/test_kernels.py;
+bars of tests/test_kernels.py (``mamba2_scan`` at zamba2's N 64 and up to
+xLSTM's N 1024, P 1025, per-head q and k); a reduced xLSTM (d_model 256:
+N 256 a head) on the kernel path against its plain path within 1e-4;
 the hierarchy: ``wc_trips`` bit-equal to the plain trip loop on a
 refinement round's candidates (``synthetic_layered(32, 16)``, both
 placements), a hierarchical ``place()`` and ``replace()`` on the kernel
@@ -723,13 +725,21 @@ def _ssd_inputs(cuda, B, S, H, N, P, seed, shared_qk=False, state=False):
                                           True),    # N 50
     (1, 1, 3, 50, 100, 100, False, True), (2, 1, 2, 64, 256, 256, True,
                                            True),   # S 1
-    (4, 2048, 16, 64, 256, 256, True, True)])       # serving, state in
+    (4, 2048, 16, 64, 256, 256, True, True),        # serving, state in
+    (4, 2048, 4, 1024, 1025, 256, False, False),    # xLSTM's mLSTM prefill
+    (4, 2048, 4, 1024, 1025, 256, False, True),
+    (1, 300, 2, 100, 1025, 256, False, True),       # N 100, P 1025
+    (2, 129, 2, 1000, 100, 64, False, False),       # N 1000, P 100
+    (2, 300, 2, 1000, 1025, 100, True, True),       # shared, ragged
+    (1, 77, 3, 200, 33, 32, True, False), (1, 1, 2, 1024, 1025, 256, False,
+                                           True)])
 def test_mamba2_scan_kernel_matches_plain(cuda, B, S, H, N, P, chunk, shared,
                                           state):
     """y and the final state within 1e-4 of the plain version, scaled by
     max(|ref|, 1) (tests/test_kernels.py's bar); ragged S, S = 1, head
     stride 0 and per-head q and k, P and chunk 100, N 50, the serving
-    shape and a nonzero initial state included.  One call counts one
+    shape and a nonzero initial state included; past one tile of N (100,
+    200, 1000, 1024) with P 1025 (padded to a pitch of 1028), 100 and 33.  One call counts one
     launch, whatever the number of kernels it runs."""
     q, k, v, log_a, st = _ssd_inputs(cuda, B, S, H, N, P, B * S + N,
                                      shared, state)
@@ -743,9 +753,22 @@ def test_mamba2_scan_kernel_matches_plain(cuda, B, S, H, N, P, chunk, shared,
         assert float((got - ref).abs().max()) / scale <= 1e-4
 
 
+def test_mamba2_scan_reads_pitched_v_in_place(cuda):
+    """A v built in ``pitched`` (xLSTM's 1025 columns at a pitch of 1028)
+    gives, bit for bit, the y and state of the same values handed over
+    contiguous (which the wrapper copies into a padded buffer)."""
+    q, k, v, log_a, st = _ssd_inputs(cuda, 2, 300, 2, 100, 1025, 7,
+                                     state=True)
+    vp = ssd_ops.pitched(2, 300, 2, 1025, device=cuda)
+    vp.copy_(v)
+    y, fin = ssd_ops.ssd_scan(q, k, v, log_a, 256, st, backend="cuda")
+    y_p, fin_p = ssd_ops.ssd_scan(q, k, vp, log_a, 256, st, backend="cuda")
+    assert torch.equal(y, y_p) and torch.equal(fin, fin_p)
+
+
 def test_mamba2_scan_kernel_rejects_bad_inputs(cuda):
-    q, k, v, log_a, _ = _ssd_inputs(cuda, 1, 16, 2, 128, 8, 0)
-    with pytest.raises(ValueError):                  # N > 64
+    q, k, v, log_a, _ = _ssd_inputs(cuda, 1, 16, 2, 1025, 8, 0)
+    with pytest.raises(ValueError):                  # N > MAX_STATE_DIM
         ssd_ops.ssd_scan(q, k, v, log_a, 8)
     q, k, v, log_a, _ = _ssd_inputs(cuda, 1, 16, 2, 8, 8, 0)
     with pytest.raises(ValueError):                  # bf16 v
@@ -753,6 +776,43 @@ def test_mamba2_scan_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):                  # state of the wrong shape
         ssd_ops.ssd_scan(q, k, v, log_a, 8, torch.zeros(1, 2, 8, 4,
                                                         device=cuda))
+
+
+def test_reduced_xlstm_kernel_path_matches_plain(cuda):
+    """xlstm_1p3b.reduced() at d_model 256 (7 mLSTM + 1 sLSTM, N = P =
+    256 a head, P + 1 = 257 on v) in fp32: train-mode logits, prefill and
+    three decode steps on the kernel path within 1e-4 of max(|plain|, 1)
+    of the plain path, with one ``mamba2_scan`` launch a mLSTM block in
+    each full-sequence pass."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import steps, transformer
+    cfg = dataclasses.replace(get_config("xlstm_1p3b").reduced(),
+                              d_model=256, compute_dtype="float32")
+    params = transformer.init_params(cfg, 0, device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
+    out = {}
+    for backend in ("cuda", "torch"):
+        before = ssd_ops.launches
+        with torch.inference_mode():
+            full, _, _ = transformer.model_apply(params, cfg,
+                                                 {"tokens": toks},
+                                                 ssm_backend=backend)
+            state = transformer.init_decode_state(cfg, 2, 40,
+                                                  dtype=torch.float32,
+                                                  device=cuda)
+            pre, state = steps.make_prefill_step(cfg, 40, None, backend)(
+                params, {"tokens": toks[:, :37]}, state)
+            dec = []
+            for i in range(37, 40):
+                lg, state = steps.make_decode_step(cfg, None, backend)(
+                    params, {"tokens": toks[:, i:i + 1]}, state, i)
+                dec.append(lg)
+        assert ssd_ops.launches - before == (14 if backend == "cuda" else 0)
+        out[backend] = [full, pre, *dec]
+    for got, ref in zip(out["cuda"], out["torch"]):
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) / scale <= 1e-4
 
 
 # ------------------------------------- checkpoints and the baselines

@@ -316,8 +316,8 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     assert "CUDA is not available" in out.stderr
 
 
-@pytest.mark.parametrize("arch", ["xlstm_1p3b", "granite_moe_3b_a800m",
-                                  "musicgen_large", "paligemma_3b"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "musicgen_large",
+                                  "paligemma_3b"])
 def test_unported_parts_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):

@@ -12,8 +12,12 @@ CUDA kernel itself is held against the plain version on the card
 The CUDA kernel's arithmetic (``csrc/mamba2_scan.cu``: q kᵀ scores, chunk
 states, the state chain, chunk outputs with the decay factored off the
 diagonal 64-row tile; every product in 3xTF32, operands rounded to TF32 as
-``cvt.rna`` rounds) is emulated here in torch and held against the JAX
-package (the emulation is part of this test, not of any path).
+``cvt.rna`` rounds; the depth N of q kᵀ and q S_inᵀ walked in 64-wide
+tiles, each summed on its own and added in fp32) is emulated here in
+torch and held against the JAX package (the emulation is part of this
+test, not of any path), at zamba2's N 64 and at state dims past one tile
+(up to xLSTM's 1024), per-head q and k and odd P (xLSTM's values plus
+the normalizer channel), on the mLSTM's own gates too.
 """
 import dataclasses
 
@@ -28,6 +32,7 @@ from repro.kernels.mamba2_scan.kernel import mamba2_chunk_scan
 from repro.kernels.mamba2_scan.ref import gla_ref
 from repro.models import ssm as jax_ssm
 from repro.models.config import SSMConfig as JaxSSMConfig
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan.ops import chunk_cumsum, ssd_scan
 from repro_torch.models import ssm
 from repro_torch.models.config import SSMConfig
@@ -103,6 +108,29 @@ def test_chunk_cumsum_pads_with_zeros():
     assert torch.equal(cum[:, :, 2, 2], cum[:, :, 2, 1])  # decay 1 past S
 
 
+@pytest.mark.parametrize("B,S,H,P", [(2, 5, 3, 1025), (1, 4, 2, 33),
+                                     (3, 1, 1, 6), (1, 6, 1, 1025)])
+def test_pitched_v_is_read_in_place(B, S, H, P):
+    """``pitched`` rows sit at P rounded up to 4 floats, the pitch the
+    wrapper reads in place; a contiguous v has pitch P (the wrapper pads
+    it if P is not a multiple of 4), a v of any other layout none (the
+    wrapper rejects it).  The plain version gives the same y and state
+    on a pitched v as on a contiguous one."""
+    ld = -(-P // 4) * 4
+    q, k, v, log_a, st = (None if x is None else torch.from_numpy(x)
+                          for x in _inputs(B, S, H, 8, P, 0, state=True))
+    vp = ssd_ops.pitched(B, S, H, P)
+    vp.copy_(v)
+    assert vp.shape == v.shape and ssd_ops._row_pitch(vp) == ld
+    assert ssd_ops._row_pitch(v) == P
+    if S > 1 and H > 1:
+        assert ssd_ops._row_pitch(v.transpose(1, 2).contiguous()
+                                  .transpose(1, 2)) is None
+    y, fin = ssd_scan(q, k, v, log_a, 4, st)
+    y_p, fin_p = ssd_scan(q, k, vp, log_a, 4, st)
+    assert torch.equal(y, y_p) and torch.equal(fin, fin_p)
+
+
 def test_gla_step_matches_reference():
     q, k, v, log_a, st = _inputs(2, 1, 3, 8, 16, 1, state=True)
     y_r, st_r = jax_ssm.gla_step(*(jnp.asarray(x[:, 0]) for x in
@@ -160,6 +188,14 @@ def _mm(a, b, split=True):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _mm_n(a, b, split=True):
+    """a @ b with the contraction (the state dim N) walked in 64-wide
+    tiles, as passes 1 and 4 walk it: each tile's product on its own,
+    the tiles added in fp32."""
+    return sum(_mm(a[..., n0:n0 + 64], b[..., n0:n0 + 64, :], split)
+               for n0 in range(0, a.shape[-1], 64))
+
+
 def _emulate_kernel(q, k, v, log_a, chunk, state=None, split=True):
     """The four passes of csrc/mamba2_scan.cu in torch, q, k: (B, S, H, N);
     v: (B, S, H, P); log_a: (B, S, H); state: (B, H, P, N) or None.
@@ -171,7 +207,7 @@ def _emulate_kernel(q, k, v, log_a, chunk, state=None, split=True):
         .reshape(B, nc, chunk, H, -1).permute(0, 3, 1, 2, 4)
     qc, kc, vc = fold(q), fold(k), fold(v)             # (B, H, nc, L, .)
     cum = chunk_cumsum(log_a, chunk).reshape(B, H, nc, chunk)
-    G = _mm(qc, kc.transpose(-1, -2), split)           # pass 1
+    G = _mm_n(qc, kc.transpose(-1, -2), split)         # pass 1
     w = torch.exp(cum[..., -1:] - cum)                 # pass 2
     dS = _mm((vc * w[..., None]).transpose(-1, -2), kc, split)
     x = torch.zeros(B, H, P, N) if state is None else state.float()
@@ -184,7 +220,7 @@ def _emulate_kernel(q, k, v, log_a, chunk, state=None, split=True):
     for t0 in range(0, chunk, 64):
         t1 = min(t0 + 64, chunk)
         ct, c0 = cum[..., t0:t1], cum[..., t0:t0 + 1]
-        acc = _mm(qc[..., t0:t1, :], s_in.transpose(-1, -2), split) \
+        acc = _mm_n(qc[..., t0:t1, :], s_in.transpose(-1, -2), split) \
             * torch.exp(c0)[..., None]
         if t0:       # off the diagonal tile: a[t] b[s], both <= 1
             b = torch.exp(c0 - cum[..., :t0])
@@ -219,7 +255,12 @@ def _shared_inputs(B, S, H, N, P, seed, shared, state):
     (2, 300, 3, 64, 96, 128, True, True),      # ragged, initial state
     (1, 100, 2, 50, 100, 100, False, True),    # S <= chunk, N 50, P 100
     (2, 1, 2, 8, 16, 256, True, True),         # S = 1
-    (1, 200, 2, 8, 64, 64, False, True)])
+    (1, 200, 2, 8, 64, 64, False, True),
+    # past one tile of N: per-head q and k, odd P (values + normalizer)
+    (1, 128, 2, 130, 131, 64, False, True),    # N 130: a ragged third tile
+    (2, 70, 2, 200, 201, 32, False, False),    # ragged S, N 200
+    (1, 64, 1, 1024, 33, 64, False, True),     # xLSTM's N, 16 tiles
+    (1, 96, 2, 100, 65, 256, True, True)])     # S <= chunk, shared
 def test_kernel_numerics_scheme_matches_reference(B, S, H, N, P, chunk,
                                                   shared, state):
     """y and the final state within 1e-4 of max(|ref|, 1) of the JAX
@@ -243,6 +284,33 @@ def test_kernel_numerics_scheme_matches_reference(B, S, H, N, P, chunk,
     y_p, fin_p = ssd_scan(_t(q), _t(k), _t(v), _t(log_a), chunk, _t(st))
     _scaled_close(y, y_p, 1e-5)
     _scaled_close(fin, fin_p, 1e-5)
+
+
+@pytest.mark.parametrize("S,state", [(200, False), (160, True)])
+def test_kernel_numerics_on_mlstm_inputs(S, state):
+    """The mLSTM's scan inputs (``models/ssm.py::_mlstm_core``): per-head
+    q and k / sqrt(P), v scaled by the input gate exp(clip(., -10, 5))
+    plus the gate itself as a normalizer channel (P + 1 = 129 columns),
+    log decay logsigmoid(.), N = P = 128 (two tiles of N); y and the
+    final state within 1e-4 of max(|ref|, 1) of the JAX chunked_gla."""
+    rng = np.random.default_rng(S)
+    B, H, P, chunk = 2, 2, 128, 64
+    q = rng.standard_normal((B, S, H, P))
+    k = rng.standard_normal((B, S, H, P)) / np.sqrt(P)
+    v = rng.standard_normal((B, S, H, P))
+    gates = rng.standard_normal((B, S, 2 * H)) * 3.0
+    i_g = np.exp(np.clip(gates[..., :H], -10.0, 5.0))
+    log_f = -np.logaddexp(0.0, -gates[..., H:])
+    v_aug = np.concatenate([v * i_g[..., None], i_g[..., None]], -1)
+    st = rng.standard_normal((B, H, P + 1, P)) * 0.3 if state else None
+    args = [None if x is None else np.ascontiguousarray(x, np.float32)
+            for x in (q, k, v_aug, log_f, st)]
+    y, fin = _emulate_kernel(*map(_t, args[:4]), chunk, _t(args[4]))
+    y_r, st_r = jax_ssm.chunked_gla(*(jnp.asarray(x) for x in args[:4]),
+                                    chunk, None if st is None
+                                    else jnp.asarray(args[4]))
+    _scaled_close(y, y_r)
+    _scaled_close(fin, st_r)
 
 
 def test_kernel_numerics_need_the_split():
