@@ -230,7 +230,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    On each path the launch counts are reset just before it is driven and
    read just after (checks against plain versions and timings excluded);
    every Pallas kernel must have a port that launched on its path.
-13. serving path, run right after item 6: xlstm-1.3b at full width and
+13. serving path, run right after item 14: xlstm-1.3b at full width and
    depth (48 layers: 42 mLSTM and 6 sLSTM blocks, d_model 2048, vocab
    50,304; random seed-0 weights in bf16, ~3.4e9 parameters).  First
    ``mamba2_scan`` against its plain version at xLSTM's mLSTM prefill
@@ -252,7 +252,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    blocks' calls timed between syncs; the first block's launches under
    the profiler), and one prefill and one decode step under
    ``torch.profiler``.
-14. prints the ``kernels`` JSON line and, last, the result line.
+14. serving path, run right after item 6, before item 13 (whose
+   profiled prefill leaves later profiler sessions without kernel
+   records): granite-moe-3b-a800m (32
+   layers, 40 experts top-8), qwen3-moe-235b-a22b (full width, 128
+   experts top-8, 2 of its 94 layers), musicgen-large (48 layers, frame
+   embeddings in, fresh frames each decode step) and paligemma-3b (18
+   layers, 256 patch embeddings in front of the prompt: 2,304 positions)
+   at full width with random seed-0 weights in bf16, each batch 4 x
+   prompt 2048, 32 greedy tokens through ``repro_torch.launch.serve``'s
+   functions.  First ``flash_attention`` against its plain version at each
+   config's prefill shape (bf16 at batch 4, fp32 at batch 1) and timed
+   there in bf16 (``flash_fwd_wgmma`` at d 128 for qwen3-moe, at d 64 with
+   8 KV heads for granite, ``flash_fwd_mma`` over 2,304 positions for
+   paligemma).  One prefill must launch ``flash_attention`` once a layer,
+   all ``flash_fwd_wgmma`` (granite 32, qwen3-moe 2, musicgen 48) or all
+   ``flash_fwd_mma`` (paligemma 18), and ``mamba2_scan`` never, by the
+   wrappers' counts.  Logits gates: bf16 over the full depth no further
+   from the plain path than its own bf16-vs-fp32 gap (seed 0); fp32 at
+   batch 1 over the full depth within LOGITS_TOL, the fp64 reading beside
+   it (not for qwen3-moe), the MoE configs' plain runs forced onto the
+   kernel run's expert choices (printed: how many choices the plain run
+   would have made otherwise, and their smallest probability gap).
+   Prints prefill s, decode ms a step, tokens per second, peak memory,
+   and for the MoE configs the share of assignments dropped past an
+   expert's capacity in a prefill and a decode step; then one profiled
+   prefill and decode step of granite and paligemma (device ms by
+   kernel and by kind: flash, gemm, sort, gather / scatter, ...).
+15. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -327,7 +354,9 @@ from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
 from repro_torch.launch import doppler_train  # noqa: E402
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
+                                      prompt_inputs, prompt_positions,
                                       prompt_tokens)
+from repro_torch.models import mlp as moe_mlp  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
@@ -371,6 +400,21 @@ GEMMA_BF16_SEEDS = (0, 1)
 # again for each seed: two, as gemma's (the 8-layer fp32 gate and the
 # kernel phase hold the kernel at 1e-4)
 XLSTM_BF16_SEEDS = (0, 1)
+# path 14: the MoE and stub-frontend configs at full width, the same
+# request; per config the layers served and the flash kernel its bf16
+# prefill runs, one launch a layer.  qwen3-moe at full width over 2 of its
+# 94 layers: 94 hold ~470 GB of bf16 weights, one card 80.  The fp32 gates
+# at batch 1 over the full depth, the fp64 reading beside them but for
+# qwen3-moe (its fp64 copy would take 50 GB); the MoE configs' plain runs
+# forced onto the kernel run's expert choices (an fp32 near-tie flips a
+# top-k choice, and a flip moves a token by O(1)).  PATH14_PROFILED get a
+# profiled prefill
+PATH14 = {"granite_moe_3b_a800m": (32, "flash_fwd_wgmma"),
+          "qwen3_moe_235b_a22b": (2, "flash_fwd_wgmma"),
+          "musicgen_large": (48, "flash_fwd_wgmma"),
+          "paligemma_3b": (18, "flash_fwd_mma")}
+PATH14_NO_FP64 = ("qwen3_moe_235b_a22b",)
+PATH14_PROFILED = ("granite_moe_3b_a800m", "paligemma_3b")
 # the training path: Stage I and Stage II at the policy's published width
 # on the placement slice's main shape; the gate (kernel backends vs plain
 # on the card, from one state) at the reference's bars: losses relative,
@@ -907,10 +951,15 @@ def time_flash(dev, gen, shape, dt, rate) -> dict:
     flops = 4.0 * B * H * d * S * (S + 1) / 2
     elems = 2 * B * S * H * d + 2 * B * S * Hkv * d
     b_ms, b_by = bound_ms(q.element_size() * elems, flops, rate)
+    # a profiler session can come back without the kernel's records
+    # (PERF.md): then the share is of the per-call time
+    dev = (f"{dev_ms:.5f} ms device" if dev_ms is not None else
+           "device ms not measured (no kernel record in the profile)")
     print(f"flash_attention {str(dt).split('.')[-1]} B={B} S={S} H={H} "
           f"Hkv={Hkv} d={d} ({name}, {CARD}): {ms:.5f} ms per call, "
-          f"{dev_ms:.5f} ms device, {flops / ms * 1e-9:.1f} TFLOP/s; bound "
-          f"{b_ms:.5f} ms ({b_by}, {b_ms / dev_ms:.4f} of it); plain "
+          f"{dev}, {flops / ms * 1e-9:.1f} TFLOP/s; bound "
+          f"{b_ms:.5f} ms ({b_by}, {b_ms / (dev_ms or ms):.4f} of it); "
+          f"plain "
           f"{plain_ms:.5f} ms; scaled_dot_product_attention "
           f"{library_ms:.5f} ms")
     return {"ms": ms, "timed_device_ms": dev_ms, "plain_ms": plain_ms,
@@ -1368,6 +1417,29 @@ def device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+# kernel-name tags of each kind of device work, matched in this order
+KERNEL_KINDS = (("flash", ("flash_fwd",)), ("mamba2_scan", ("ssd_",)),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                ("sort", ("sort", "Sort", "Radix", "searchsorted")),
+                ("gather_scatter", ("index", "Index", "gather", "Gather",
+                                    "scatter", "Scatter")),
+                ("reduce_softmax", ("reduce", "Reduce", "softmax",
+                                    "Softmax")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def device_split(rows) -> dict:
+    """(device ms, launches) by kind of kernel (KERNEL_KINDS, else
+    "other"), largest first."""
+    out = {}
+    for us, count, key in rows:
+        kind = next((k for k, tags in KERNEL_KINDS
+                     if any(t in key for t in tags)), "other")
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + us * 1e-3, n + count)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
 def per_launch_ms(rows, tags) -> dict:
     """Device ms per launch of each named kernel (None if not traced)."""
     out = {}
@@ -1379,39 +1451,60 @@ def per_launch_ms(rows, tags) -> dict:
 
 
 # ------------------------------------------------------ serving path
+def _as_batch(x) -> dict:
+    """Token ids (B, S) as a batch dict; a batch dict as it is."""
+    return x if isinstance(x, dict) else {"tokens": x}
+
+
+def _rows(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def _n_steps(tokens) -> int:
+    return next(iter(_as_batch(tokens).values())).shape[1]
+
+
 def teacher_forced(params, cfg, prompt, tokens, backend, state_dtype,
                    ssm_backend=None):
-    """Prefill ``prompt``, then one decode step per column of ``tokens``
-    (fed, not sampled); -> the logits of prefill's last position and of
+    """Prefill ``prompt`` (token ids (B, S) or a batch dict from
+    ``prompt_inputs``), then one decode step per column of ``tokens``
+    ((B, T) ids, or a dict of step inputs such as the audio stub's frames;
+    fed, not sampled); -> the logits of prefill's last position and of
     every step.  ``backend`` serves attention and, unless ``ssm_backend``
     is given, the Mamba2 scan."""
-    B, S = prompt.shape
-    T = tokens.shape[1]
+    prompt, tokens = _as_batch(prompt), _as_batch(tokens)
+    first = next(iter(prompt.values()))
+    B, S, T = first.shape[0], prompt_positions(prompt), _n_steps(tokens)
     state = init_decode_state(cfg, B, S + T, dtype=state_dtype,
-                              device=prompt.device)
+                              device=first.device)
     ssm_backend = ssm_backend or backend
     prefill = make_prefill_step(cfg, S + T, backend, ssm_backend)
     decode = make_decode_step(cfg, backend, ssm_backend)
     with torch.inference_mode():
-        logits, state = prefill(params, {"tokens": prompt}, state)
+        logits, state = prefill(params, prompt, state)
         out = [logits]
         for i in range(T):
-            logits, state = decode(params, {"tokens": tokens[:, i:i + 1]},
-                                   state, S + i)
+            logits, state = decode(
+                params, {k: v[:, i:i + 1] for k, v in tokens.items()},
+                state, S + i)
             out.append(logits)
     return out
 
 
 def compare_paths(params, cfg, prompt, tokens, state_dtype, what,
-                  plain=None, fp32=None, fp64=None) -> tuple[float, float]:
+                  plain=None, fp32=None, fp64=None,
+                  kern=None) -> tuple[float, float]:
     """Kernel path vs plain path (both backends "torch") on the card: the
     logits of prefill and of each teacher-forced decode step; -> (max
-    scaled gap, its bar).  ``plain``: the plain path's logits, if already
-    computed.  The bar is LOGITS_TOL, or, given ``fp32`` (the plain path's
-    logits at compute_dtype float32 on the same weights), the plain path's
-    own largest gap from them.  ``fp64``: the plain path's logits in
-    float64 (parameters cast to fp64), a reading printed beside the bar."""
-    kern = teacher_forced(params, cfg, prompt, tokens, "cuda", state_dtype)
+    scaled gap, its bar).  ``plain`` / ``kern``: the plain / kernel path's
+    logits, if already computed.  The bar is LOGITS_TOL, or, given
+    ``fp32`` (the plain path's logits at compute_dtype float32 on the same
+    weights), the plain path's own largest gap from them.  ``fp64``: the
+    plain path's logits in float64 (parameters cast to fp64), a reading
+    printed beside the bar."""
+    if kern is None:
+        kern = teacher_forced(params, cfg, prompt, tokens, "cuda",
+                              state_dtype)
     if plain is None:
         plain = teacher_forced(params, cfg, prompt, tokens, "torch",
                                state_dtype)
@@ -1432,7 +1525,7 @@ def compare_paths(params, cfg, prompt, tokens, state_dtype, what,
                     f" kernel "
                     f"{max(scaled_err64(a, b) for a, b in zip(kern, fp64))}")
     print(f"{what}: kernel vs plain path, logits of prefill + "
-          f"{tokens.shape[1]} decode steps: max scaled err {max(errs)} "
+          f"{_n_steps(tokens)} decode steps: max scaled err {max(errs)} "
           f"(prefill {errs[0]}, tol {tol}), argmax agreement "
           f"{argmax_agreement(kern, plain)}{vs_fp32}")
     return max(errs), tol
@@ -1445,24 +1538,35 @@ def argmax_agreement(a: list, b: list) -> float:
     return float(torch.stack(same).mean())
 
 
-def serve_path(dev, arch):
-    """A serving request through repro_torch.launch.serve's functions: the
-    config at full width, batch 4 x prompt 2048, 32 greedy tokens.  Launch
-    counts are reset just before and read just after."""
-    cfg = get_config(arch)
+def serve_request(dev, cfg):
+    """A serving request through repro_torch.launch.serve's functions:
+    ``cfg`` with random seed-0 weights, batch 4 x prompt 2048 (+ patches),
+    32 greedy tokens (the audio stub fed fresh frames each step).  Launch
+    counts are reset just before and read just after; -> (params, the
+    prompt's batch dict, the decode steps' inputs or None, the result,
+    launches, peak GB)."""
     params = load_model(cfg, seed=0, device=dev)
-    prompt = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
-                           device=dev)
-    generate(params, cfg, prompt[:, :64], 2)         # first-use set-up
+    prompt, steps = prompt_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                                  seed=0, device=dev)
+    small, small_steps = prompt_inputs(cfg, SERVE_BATCH, 64, 2, 0, dev)
+    generate(params, cfg, small, 2, step_inputs=small_steps)  # set-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = ssd_ops.launches = 0
     fa_ops.kernel_launches.update(flash_fwd_wgmma=0, flash_fwd_mma=0)
-    res = generate(params, cfg, prompt, SERVE_GEN)
+    res = generate(params, cfg, prompt, SERVE_GEN, step_inputs=steps)
     launches = {"flash_attention": fa_ops.launches,
                 "mamba2_scan": ssd_ops.launches, **fa_ops.kernel_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    return cfg, params, prompt, res, launches, peak_gb
+    return params, prompt, steps, res, launches, peak_gb
+
+
+def serve_path(dev, arch):
+    """``serve_request`` for a token-fed config at full width; the prompt
+    as token ids."""
+    cfg = get_config(arch)
+    params, prompt, _, res, launches, peak_gb = serve_request(dev, cfg)
+    return cfg, params, prompt["tokens"], res, launches, peak_gb
 
 
 def print_serve(cfg, res, launches, peak_gb) -> None:
@@ -1758,7 +1862,7 @@ def xlstm_path(dev) -> dict:
     slstm = slstm_in_prefill(params, cfg, prompt)
     t0 = part("slstm", t0)
     # one ssd_scan call that returns has launched each of its kernels once
-    serve_ms, by_kernel = profile_serve(
+    serve_ms, by_kernel, _ = profile_serve(
         params, cfg, prompt, res,
         {"flash_fwd_wgmma<": 0, "flash_fwd_mma<": 0,
          **{name: launches["mamba2_scan"] for name in ssd_ops.KERNELS}},
@@ -1782,6 +1886,246 @@ def xlstm_path(dev) -> dict:
     print(f"path 13 wall s: {time.perf_counter() - t_path:.3f} {parts}; "
           f"launches {launches}")
     return xlstm
+
+
+# ------------------------------------------------------------- path 14
+def path14_config(arch):
+    """``arch`` at its published width, at the depth path 14 serves."""
+    return dataclasses.replace(get_config(arch), n_layers=PATH14[arch][0])
+
+
+@contextlib.contextmanager
+def _around_moe_route(hook):
+    """Inside the block each ``moe_route`` call of the model runs as
+    ``hook(route, params, xf, cfg)``, ``route`` the function itself."""
+    f = moe_mlp.moe_route
+    moe_mlp.moe_route = lambda params, xf, cfg: hook(f, params, xf, cfg)
+    try:
+        yield
+    finally:
+        moe_mlp.moe_route = f
+
+
+def recorded_routes(log: list):
+    """Every ``moe_route`` call's expert choices appended to ``log``."""
+    def hook(route, params, xf, cfg):
+        r = route(params, xf, cfg)
+        log.append(r.experts)
+        return r
+    return _around_moe_route(hook)
+
+
+def forced_routes(log: list, stats: dict):
+    """Each ``moe_route`` call forced onto the next of ``log``'s choices,
+    its gate values this run's own probabilities there.  ``stats``: calls,
+    (token, slot) choices, how many of them the call's own top-k would
+    have made differently, and the smallest gap between the K-th and the
+    (K+1)-th probability among the tokens that differ."""
+    calls = iter(log)
+    stats.update(calls=0, choices=0, differ=0, min_margin=None)
+
+    def hook(route, params, xf, cfg):
+        forced = next(calls)
+        own = route(params, xf, cfg)
+        K = cfg.top_k
+        missing = (own.experts[:, :, None] != forced[:, None, :]).all(-1)
+        n = int(missing.sum())
+        stats["calls"] += 1
+        stats["choices"] += missing.numel()
+        stats["differ"] += n
+        if n:
+            top = own.probs.topk(K + 1, dim=-1).values
+            gap = float((top[:, K - 1] - top[:, K])[missing.any(-1)].min())
+            m = stats["min_margin"]
+            stats["min_margin"] = gap if m is None else min(m, gap)
+        return route(params, xf, cfg, experts=forced)
+    return _around_moe_route(hook)
+
+
+def moe_drop_shares(params, cfg, prompt, fed) -> tuple[float, float]:
+    """The share of top-k assignments dropped (past an expert's capacity)
+    over the layers of one kernel-path prefill of ``prompt`` and of the
+    decode step after it, fed the first column of ``fed``."""
+    drops = []
+
+    def hook(route, p, xf, moe):
+        r = route(p, xf, moe)
+        cap = moe_mlp.moe_capacity(xf.shape[0], moe)
+        keep = moe_mlp.moe_slots(r.experts, moe.n_experts, cap).keep
+        drops.append(((~keep).sum(), keep.numel()))
+        return r
+    with _around_moe_route(hook):
+        teacher_forced(params, cfg, prompt,
+                       {k: v[:, :1] for k, v in fed.items()}, "cuda",
+                       torch.bfloat16)
+    L = cfg.n_layers
+    check(len(drops) == 2 * L, f"{cfg.name}: one route a layer a pass")
+    share = lambda d: sum(int(x) for x, _ in d) / sum(n for _, n in d)
+    return share(drops[:L]), share(drops[L:])
+
+
+def check_flash_path14(dev, cfgs) -> dict:
+    """``flash_attention`` against its plain version at each config's
+    prefill shape (bf16 at batch 4, fp32 at batch 1: the shapes of its
+    serve and its gates), then timed in bf16 at each; -> the timings by
+    arch."""
+    gen = torch.Generator(dev).manual_seed(14)
+    errs, timed = {}, {}
+    for cfg in cfgs:
+        S = SERVE_PROMPT + (cfg.n_patches if cfg.frontend == "vision_stub"
+                            else 0)
+        shape = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        for b, dt in ((SERVE_BATCH, torch.bfloat16), (1, torch.float32)):
+            q, k, v = _qkv(gen, b, S, *shape, dt, dev)
+            got = fa_ops.flash_attention(q, k, v, backend="cuda")
+            ref = attention_ref(q, k, v)
+            diff = (got.float() - ref.float()).abs()
+            tol = FLASH_TOL[dt]
+            check(got.dtype == dt and bool(torch.isfinite(got).all())
+                  and bool((diff <= tol + tol * ref.float().abs()).all()),
+                  f"flash_attention at {cfg.name}'s shape {b, S, *shape, dt}:"
+                  f" max abs err {float(diff.max())}")
+            errs[f"{cfg.name} {str(dt).split('.')[-1]}"] = float(diff.max())
+            del q, k, v, got, ref, diff
+        timed[cfg.name] = time_flash(dev, gen, (SERVE_BATCH, S, *shape),
+                                     torch.bfloat16, BF16_FLOP_PER_S)
+        torch.cuda.empty_cache()
+    print(f"flash_attention vs plain at path 14's prefill shapes (bf16 B "
+          f"{SERVE_BATCH}, fp32 B 1): max abs err {errs}")
+    return timed
+
+
+def path14_gates(arch, cfg, params, prompt, fed, dev) -> dict:
+    """bf16 over the full depth: kernel path vs plain path within the plain
+    path's own bf16-vs-fp32 gap; fp32 at batch 1 over the full depth
+    within LOGITS_TOL, the fp64 reading beside it (not for
+    PATH14_NO_FP64), the MoE configs' plain runs forced onto the kernel
+    run's expert choices.  The checks come after both are printed."""
+    L = cfg.n_layers
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = load_model(cfg32, seed=0, device=dev)
+    plain32 = teacher_forced(p32, cfg32, prompt, fed, "torch", torch.float32)
+    err16, tol16 = compare_paths(params, cfg, prompt, fed, torch.bfloat16,
+                                 f"{cfg.name} bf16, {L} layers, seed 0",
+                                 fp32=plain32)
+    del plain32
+    torch.cuda.empty_cache()
+    pr1, fed1 = _rows(prompt, 1), _rows(fed, 1)
+    log, stats, stats64 = [], {}, {}
+    with recorded_routes(log):
+        kern = teacher_forced(p32, cfg32, pr1, fed1, "cuda", torch.float32)
+    with forced_routes(log, stats):
+        plain32 = teacher_forced(p32, cfg32, pr1, fed1, "torch",
+                                 torch.float32)
+    plain64 = None
+    if arch not in PATH14_NO_FP64:
+        p64 = tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                       p32)
+        with forced_routes(log, stats64):
+            plain64 = teacher_forced(p64, cfg32, pr1, fed1, "torch",
+                                     torch.float64)
+        del p64
+        torch.cuda.empty_cache()
+    err, tol = compare_paths(p32, cfg32, pr1, fed1, torch.float32,
+                             f"{cfg.name} fp32, {L} layers, batch 1",
+                             plain=plain32, fp64=plain64, kern=kern)
+    n_calls = len(log)
+    del p32, plain32, plain64, kern, log
+    torch.cuda.empty_cache()
+    if cfg.moe is not None:
+        print(f"{cfg.name} fp32 gate, routing: the plain runs forced onto the "
+              f"kernel run's experts in {stats['calls']} of {n_calls} "
+              f"moe_route calls; the plain run's own top-{cfg.moe.top_k} "
+              f"differs in {stats['differ']} of {stats['choices']} (token, "
+              f"slot) choices (min gap K-th to (K+1)-th probability among "
+              f"them {stats['min_margin']}), the fp64 run's in "
+              f"{stats64.get('differ')} (min gap {stats64.get('min_margin')})")
+        check(n_calls == L * (1 + _n_steps(fed1)) == stats["calls"]
+              and stats64.get("calls", n_calls) == n_calls,
+              f"{cfg.name}: one route a layer a pass, every one of the "
+              f"plain runs forced")
+    check(err16 <= tol16, f"{cfg.name} bf16: kernel vs plain logits {err16} "
+                          f"> the plain path's own bf16 gap {tol16}")
+    check(err <= tol, f"{cfg.name} fp32 {L} layers: kernel vs plain logits "
+                      f"{err} > {tol}")
+    return {"bf16": {"err": err16, "bar": tol16},
+            "fp32": {"err": err, "bar": tol},
+            "routing_fp32": stats if cfg.moe else None,
+            "routing_fp64": stats64 if cfg.moe else None}
+
+
+def serve_config14(dev, arch) -> dict:
+    """One config of path 14: served, checked, gated, maybe profiled."""
+    t0 = time.perf_counter()
+    cfg = path14_config(arch)
+    L, kernel = PATH14[arch]
+    pub = get_config(arch)
+    check(dataclasses.replace(cfg, n_layers=pub.n_layers) == pub,
+          f"{cfg.name} at its published width")
+    params, prompt, steps, res, launches, peak_gb = serve_request(dev, cfg)
+    other = ({"flash_fwd_wgmma", "flash_fwd_mma"} - {kernel}).pop()
+    want = {"flash_attention": L, "mamba2_scan": 0, kernel: L, other: 0}
+    check(launches == want, f"one {cfg.name} prefill launches "
+                            f"flash_attention {L}x, all {kernel}, "
+                            f"mamba2_scan never: {launches}")
+    check_outputs(cfg, res)
+    fed = steps if steps is not None else {"tokens": res.tokens}
+    drops = None
+    if cfg.moe is not None:
+        drops = moe_drop_shares(params, cfg, prompt, fed)
+    positions = prompt_positions(prompt)
+    n_steps = SERVE_GEN - 1
+    print(f"serve {cfg.name} ({L} layers, d_model {cfg.d_model}, random "
+          f"seed-0 weights, {cfg.compute_dtype}, {CARD}): batch "
+          f"{SERVE_BATCH} prompt {SERVE_PROMPT} ({positions} positions) "
+          f"gen {SERVE_GEN}: prefill_s={res.prefill_s:.6f} "
+          f"prefill_positions_per_s="
+          f"{SERVE_BATCH * positions / res.prefill_s:.1f} "
+          f"decode_ms_per_step={res.decode_ms_per_step:.6f} "
+          f"decode_tokens_per_s={SERVE_BATCH * n_steps / res.decode_s:.1f} "
+          f"peak_memory_gb={peak_gb:.3f} launches {launches}"
+          + (f" dropped_share_prefill={drops[0]:.6f} "
+             f"dropped_share_decode_step={drops[1]:.6f}" if drops else ""))
+    t_serve = time.perf_counter()
+    gates = path14_gates(arch, cfg, params, prompt, fed, dev)
+    t_gates = time.perf_counter()
+    split = None
+    if arch in PATH14_PROFILED:
+        # launches by the wrappers' counts: a session may lose records
+        _, _, split = profile_serve(
+            params, cfg, prompt, res, {f"{kernel}<": L, f"{other}<": 0},
+            counted=lambda: {f"{k}<": fa_ops.kernel_launches[k]
+                             for k in (kernel, other)})
+    serve = {"prefill_s": res.prefill_s,
+             "decode_ms_per_step": res.decode_ms_per_step,
+             "decode_tokens_per_s": SERVE_BATCH * n_steps / res.decode_s,
+             "peak_memory_gb": peak_gb}
+    del params, res
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"path 14 {cfg.name} wall s: {t1 - t0:.3f} (serve "
+          f"{t_serve - t0:.3f}, gates {t_gates - t_serve:.3f}, profile "
+          f"{t1 - t_gates:.3f})")
+    return {"kernel": kernel, "launches": launches[kernel], "layers": L,
+            "serve": serve, "dropped_share": drops, "gates": gates,
+            "device_split": split}
+
+
+def path14(dev) -> tuple[dict, dict]:
+    """Path 14: the flash kernel at each config's shapes, then each config
+    served and gated; -> the records of ``flash_fwd_wgmma``'s configs and
+    of ``flash_fwd_mma``'s."""
+    t_path = time.perf_counter()
+    timed = check_flash_path14(dev, [path14_config(a) for a in PATH14])
+    by_kernel = {"flash_fwd_wgmma": {}, "flash_fwd_mma": {}}
+    for arch in PATH14:
+        rec = serve_config14(dev, arch)
+        rec["kernel_timing"] = timed[path14_config(arch).name]
+        by_kernel[rec["kernel"]][arch] = rec
+    print(f"path 14 wall s: {time.perf_counter() - t_path:.3f}; flash "
+          f"launches a prefill " + str({a: r["launches"] for k in by_kernel
+                                        for a, r in by_kernel[k].items()}))
+    return by_kernel["flash_fwd_wgmma"], by_kernel["flash_fwd_mma"]
 
 
 # ---------------------------------------------------------- training path
@@ -2310,7 +2654,9 @@ def _profiled(fn, tags=(), cpu=True):
 def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
                   counted=None) -> dict:
     """One more prefill, then one decode step, under ``torch.profiler``:
-    device time per kernel name and the device's busy share of each.
+    device time per kernel name and by kind (``device_split``), and the
+    device's busy share of each; -> (device ms a launch by kernel,
+    ``mamba2_scan``'s by pass, the split of each phase).
     ``expect``: the prefill's launches by kernel-name tag, which the
     profile must hold; ``cpu``: as ``_trace``'s.  ``counted`` (-> the
     wrappers' launch counts by tag) is for a prefill of so many launches
@@ -2318,15 +2664,17 @@ def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
     ~270,000): then the wrappers' counts over the profiled prefill must
     equal ``expect``, and the profile must hold each expected kernel at
     least once and none more often than expected."""
-    B, S = prompt.shape
-    state = init_decode_state(cfg, B, S + SERVE_GEN, device=prompt.device)
+    prompt = _as_batch(prompt)
+    first = next(iter(prompt.values()))
+    B, S = first.shape[0], prompt_positions(prompt)
+    state = init_decode_state(cfg, B, S + SERVE_GEN, device=first.device)
     prefill = make_prefill_step(cfg, S + SERVE_GEN)
     decode = make_decode_step(cfg)
     out, wrapped = {}, []
 
     def run_prefill():
         c0 = counted() if counted else {}
-        out.update(pre=prefill(params, {"tokens": prompt}, state))
+        out.update(pre=prefill(params, prompt, state))
         if counted:
             wrapped.append({t: n - c0[t] for t, n in counted().items()})
 
@@ -2335,7 +2683,7 @@ def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
               ("decode step", lambda: decode(
                   params, {"tokens": res.tokens[:, :1]}, out["pre"][1], S),
                res.decode_ms_per_step * 1e-3, 6, ()))
-    rows_by_phase = {}
+    rows_by_phase, splits = {}, {}
     for name, fn, untraced_s, top, tags in phases:
         traced_s, rows = _profiled(fn, tags, cpu)
         busy_s = sum(r[0] for r in rows) * 1e-6
@@ -2346,6 +2694,11 @@ def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
               f"device_launches={sum(r[1] for r in rows)}")
         for us, count, key in rows[:top]:
             print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
+        splits[name] = device_split(rows)
+        busy = max(busy_s, 1e-12)
+        print("  by kind (device ms, launches, share of device time): "
+              + ", ".join(f"{g} {ms:.3f} {n} {ms * 1e-3 / busy:.4f}"
+                          for g, (ms, n) in splits[name].items()))
         rows_by_phase[name] = rows
     pre = rows_by_phase["prefill"]
     counts = {tag: sum(c for _, c, key in pre if tag in key)
@@ -2372,7 +2725,8 @@ def profile_serve(params, cfg, prompt, res, expect: dict, cpu=True,
         print(f"profile {cfg.name} prefill: mamba2_scan device ms per call "
               f"{per['mamba2_scan']:.5f} = "
               + " + ".join(f"{n} {t:.5f}" for n, t in by_kernel.items()))
-    return {k: t for k, t in per.items() if t is not None}, by_kernel
+    return ({k: t for k, t in per.items() if t is not None}, by_kernel,
+            splits)
 
 # ------------------------------------------------------- Stage III path
 def closed_form(ex, plan) -> dict:
@@ -3701,7 +4055,7 @@ def main() -> int:
     cfg, params, prompt, res, serve_launches, peak_gb = serve_path(
         dev, SERVE_ARCH)
     check_serve_path(cfg, params, prompt, res, serve_launches, peak_gb, dev)
-    serve_ms, ssd_by_kernel = profile_serve(
+    serve_ms, ssd_by_kernel, _ = profile_serve(
         params, cfg, prompt, res,
         {"flash_fwd_wgmma<": 6, "flash_fwd_mma<": 0, "ssd_chunk_scan": 0,
          **{name: 32 for name in ssd_ops.KERNELS}})
@@ -3718,12 +4072,22 @@ def main() -> int:
     cfg, params, prompt, res, gemma_launches, peak_gb = serve_path(
         dev, GEMMA_ARCH)
     check_gemma_path(cfg, params, prompt, res, gemma_launches, peak_gb, dev)
-    gemma_ms, _ = profile_serve(params, cfg, prompt, res,
+    gemma_ms, _, _ = profile_serve(params, cfg, prompt, res,
                                 {"flash_fwd_mma<": 18, "flash_fwd_wgmma<": 0})
     device_ms["flash_attention_mma"] = gemma_ms["flash_attention_mma"]
     launches["flash_attention_mma"] = gemma_launches["flash_fwd_mma"]
     del params, res
     torch.cuda.empty_cache()
+
+    # path 14: serving granite-moe-3b-a800m, qwen3-moe-235b-a22b (2 of 94
+    # layers), musicgen-large and paligemma-3b (flash_fwd_wgmma at d 64
+    # and 128, flash_fwd_mma at d 256 over patches + prompt; the MoE's
+    # dispatch and experts in plain PyTorch, as the reference's einsums).
+    # It runs before path 13: after path 13's profiled prefill (~272,000
+    # launches) the next profiler sessions came back without kernel
+    # records (PERF.md, Findings)
+    by_name["flash_attention"]["path14"], \
+        by_name["flash_attention_mma"]["path14"] = path14(dev)
 
     # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
     # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).

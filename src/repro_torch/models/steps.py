@@ -1,12 +1,14 @@
 """Step functions (twin of ``repro/models/steps.py``): prefill and decode.
 
-The reference jits these; PyTorch runs them eagerly.  Training
-(``make_train_step``) is not ported yet (ROADMAP A11).
+The reference jits these; PyTorch runs them eagerly.  ``batch`` is the
+model's input dict (``model_apply``): tokens, or the audio stub's frames,
+with the vision stub's patches beside the tokens at prefill.  Training
+(``make_train_step``) is not ported yet (ROADMAP A11.4).
 """
 from __future__ import annotations
 
 from .config import ModelConfig
-from .transformer import UNPORTED, model_apply
+from .transformer import TRAINING_UNPORTED, model_apply
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int,
@@ -41,4 +43,4 @@ def make_decode_step(cfg: ModelConfig, attn_backend: str | None = None,
 
 
 def make_train_step(*args, **kwargs):
-    raise NotImplementedError(f"LM training is {UNPORTED}")
+    raise NotImplementedError(TRAINING_UNPORTED)

@@ -1,7 +1,8 @@
 """Generic decoder-only model (twin of ``repro/models/transformer.py``),
 ported for the block kinds ``attn``, ``attn_shared``, ``mamba``,
-``mlstm`` and ``slstm`` with a dense FFN: the serving path of zamba2,
-xlstm and the dense configs.
+``mlstm`` and ``slstm``, with a dense or token-choice MoE FFN and the
+audio and vision stub frontends: the serving path of every config in the
+registry.
 
 A model is a ``block_pattern`` unit tiled over depth.  Parameters keep the
 reference's layout: ``params["unit"][i]`` holds the weights of unit
@@ -12,21 +13,26 @@ position i stacked over the ``reps`` repetitions (axis 0),
 ``lax.scan`` over repetitions is a Python loop here, and its sharding
 annotations have no counterpart on one device.
 
+Inputs (``_frontend_embed``): token ids; for the audio stub (musicgen)
+precomputed frame embeddings instead; for the vision stub (paligemma)
+patch embeddings put in front of the token embeddings, so a prompt of S
+tokens fills ``n_patches + S`` positions.
+
 Modes: 'train' (full-sequence forward; no loss or backward here),
 'prefill' (the same forward, filling the decode state) and 'decode' (one
 token against the carried state).  Train and prefill run attention through
 the ``flash_attention`` kernel and the Mamba2 and mLSTM scans through
 the ``mamba2_scan`` kernel; both backends default to "cuda" on the card
-and "torch" (the plain versions) on the CPU.  The sLSTM recurrence is a
-plain loop over time on either.
+and "torch" (the plain versions) on the CPU.  The sLSTM recurrence and
+the MoE's dispatch and expert products are plain PyTorch on either.
 
 State: decode writes the new token's K and V into the caches it is given,
 in place, and prefill writes the prompt's (the reference returns updated
 copies; here a cache copy per step is avoided).  SSD, mLSTM and sLSTM
 states and conv tails are returned as new tensors, as in the reference.
 
-Not ported yet (ROADMAP A11): MoE, the audio and vision frontends, and
-training (``lm_loss``); they raise ``NotImplementedError``.
+Not ported yet: LM training (``lm_loss``, ROADMAP A11.4), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from .attention import decode_attention
 from .common import (apply_norm, apply_rope, cast_block_params, dense_init,
                      dtype_of, embed_init, softcap)
 from .config import ModelConfig
-from .mlp import dense_ffn, init_dense_ffn
+from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 from .ssm import (init_mamba2, init_mlstm, init_slstm, mamba2_forward,
                   mamba2_step, mlstm_forward, mlstm_step, slstm_forward,
                   slstm_init_state, slstm_step)
@@ -50,6 +56,8 @@ ATTN_KINDS = ("attn", "attn_shared")
 SSM_INIT = {"mamba": init_mamba2, "mlstm": init_mlstm, "slstm": init_slstm}
 PORTED_KINDS = ATTN_KINDS + tuple(SSM_INIT)
 UNPORTED = "not ported to repro_torch yet (ROADMAP A11)"
+TRAINING_UNPORTED = "LM training is not ported to repro_torch yet " \
+    "(ROADMAP A11.4)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -58,11 +66,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if kinds:
         raise NotImplementedError(f"{cfg.name}: block kinds {kinds} are "
                                   f"{UNPORTED}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN is {UNPORTED}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
-                                  f"frontend is {UNPORTED}")
     if cfg.attn_mixed_precision:
         # the flash kernel, like the Pallas one, computes the fp32 mode
         raise NotImplementedError(f"{cfg.name}: bf16 attention products "
@@ -87,7 +90,9 @@ def _init_attn_block(gen, cfg: ModelConfig, dtype):
     if cfg.norm == "rms":
         p["ln1"] = _zeros(gen, d, dtype=dtype)
         p["ln2"] = _zeros(gen, d, dtype=dtype)
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        p["moe"] = init_moe_ffn(gen, d, cfg.moe, cfg.act, dtype)
+    elif cfg.d_ff > 0:
         p["ffn"] = init_dense_ffn(gen, d, cfg.d_ff, cfg.act, dtype)
     return p
 
@@ -198,6 +203,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 # ================================================================= blocks
 def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
                       cache_pos, backend):
+    """-> (x, cache, the MoE's aux loss or None)."""
     B, S, _ = x.shape
     h = apply_norm(cfg.norm, x, p.get("ln1"))
 
@@ -214,6 +220,9 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
 
     if mode == "decode":
         kc, vc = cache
+        if not 0 <= cache_pos < kc.shape[1]:
+            raise IndexError(f"decode position {cache_pos} outside the "
+                             f"{kc.shape[1]}-position KV cache")
         kc[:, cache_pos] = k[:, 0]
         vc[:, cache_pos] = v[:, 0]
         attn = decode_attention(q, kc, vc, cache_pos,
@@ -227,10 +236,13 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
             kc[:, :S] = k
             vc[:, :S] = v
     x = x + attn.reshape(B, S, cfg.q_dim) @ p["wo"]
-    if cfg.d_ff <= 0:
-        return x, cache
+    if cfg.moe is None and cfg.d_ff <= 0:
+        return x, cache, None
     h2 = apply_norm(cfg.norm, x, p.get("ln2"))
-    return x + dense_ffn(p["ffn"], h2, cfg.act), cache
+    if cfg.moe is not None:
+        ff, aux = moe_ffn(p["moe"], h2, cfg.moe, cfg.act)
+        return x + ff, cache, aux
+    return x + dense_ffn(p["ffn"], h2, cfg.act), cache, None
 
 
 def _ssm_block_apply(kind, p, cfg: ModelConfig, x, mode, state, backend):
@@ -267,11 +279,23 @@ def _ssm_block_apply(kind, p, cfg: ModelConfig, x, mode, state, backend):
 
 
 # ================================================================ forward
-def _embed(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens]
+def _frontend_embed(params, cfg: ModelConfig, batch: dict):
+    """The model's input (B, S, D) in the compute dtype, the dtype
+    ``cast_params`` gives the embedding (float64 in a float64 copy).  Audio
+    stub: ``batch["frames"]`` (B, S, D), precomputed frame embeddings.
+    Otherwise the embedded ``batch["tokens"]`` (scaled by sqrt(d_model)
+    when the embedding is tied), and for the vision stub
+    ``batch["patches"]`` (B, n_patches, D), when given, in front of
+    them."""
+    emb = params["embed"]
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].to(emb.dtype)
+    x = emb[batch["tokens"]]
     if cfg.tie_embeddings:
         scale = float(np.sqrt(np.float32(cfg.d_model)))   # fp32, as in jnp
         x = x * torch.tensor(scale, dtype=x.dtype)
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
 
 
@@ -284,17 +308,20 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
                 state=None, cache_pos: int | None = None,
                 attn_backend: str | None = None,
                 ssm_backend: str | None = None):
-    """Returns (logits, new_state, aux_loss).  ``params``: as
-    ``cast_params`` returns them (``launch/serve.py::load_model`` casts at
-    load).  ``batch["tokens"]``: (B, S) token ids (decode: (B, 1)).  train:
-    no state; prefill: ``state`` from ``init_decode_state``, caches filled
+    """Returns (logits, new_state, aux_loss), the aux loss the sum of the
+    MoE layers' (0 without MoE).  ``params``: as ``cast_params`` returns
+    them (``launch/serve.py::load_model`` casts at load).  ``batch``:
+    ``tokens`` (B, S) token ids (decode: (B, 1)); the audio stub's
+    ``frames`` (B, S, D) instead; the vision stub's ``patches`` (B,
+    n_patches, D) beside the tokens at train and prefill.  train: no
+    state; prefill: ``state`` from ``init_decode_state``, caches filled
     from position 0; decode: the carried state, ``cache_pos`` the position
-    of the token."""
+    of the token (after the patches, for the vision stub)."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     unit, reps, rem = unit_and_reps(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+    x = _frontend_embed(params, cfg, batch)
     B, S, _ = x.shape
     default = "cuda" if x.device.type == "cuda" else "torch"
     attn_backend = attn_backend or default
@@ -304,13 +331,18 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     else:
         positions = torch.arange(S, device=x.device)[None, :]
     shared = params.get("shared_attn")
+    aux_total = torch.zeros((), device=x.device)
 
     def block(kind, p, x, st):
-        if kind in ATTN_KINDS:
-            w = shared if kind == "attn_shared" else p
-            return _attn_block_apply(w, cfg, x, positions, mode, st,
-                                     cache_pos, attn_backend)
-        return _ssm_block_apply(kind, p, cfg, x, mode, st, ssm_backend)
+        nonlocal aux_total
+        if kind not in ATTN_KINDS:
+            return _ssm_block_apply(kind, p, cfg, x, mode, st, ssm_backend)
+        w = shared if kind == "attn_shared" else p
+        x, st, aux = _attn_block_apply(w, cfg, x, positions, mode, st,
+                                       cache_pos, attn_backend)
+        if aux is not None:
+            aux_total = aux_total + aux
+        return x, st
 
     new_unit = [[] for _ in unit]
     for r in range(reps):
@@ -333,8 +365,8 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
             else _stack(new_unit[i]) for i, kind in enumerate(unit)]}
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
     logits = _lm_head(params, cfg, x)
-    return logits, new_state, torch.zeros((), device=x.device)
+    return logits, new_state, aux_total
 
 
 def lm_loss(*args, **kwargs):
-    raise NotImplementedError(f"LM training is {UNPORTED}")
+    raise NotImplementedError(TRAINING_UNPORTED)

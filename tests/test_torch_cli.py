@@ -87,7 +87,10 @@ def test_cli_events_run_under_the_supervisor(capsys):
     lines = _run(capsys, BASE[:4] + [
         "--stage1", "1", "--stage2", "4", "--stage2-batch", "4",
         "--stage3", "0", "--events", "2:loss:1"])
-    sup = [l for l in lines if l.startswith("[supervisor] ")]
+    # the supervisor's event lines in order; a straggler line (a step over
+    # 3x the median wall time, which a loaded host can produce) is skipped
+    sup = [l for l in lines if l.startswith("[supervisor] ")
+           and not l.startswith("[supervisor] straggler@")]
     assert sup[0].startswith("[supervisor] recover@2: ")
     assert sup[1].startswith("[supervisor] replace@2: kind=device_loss")
     assert any(l.startswith("stage II : 4 supervised updates, 1 recoveries, "

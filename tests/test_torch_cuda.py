@@ -36,6 +36,9 @@ and 128 on ``flash_fwd_wgmma`` and everything else, d up to 256, on
 bars of tests/test_kernels.py (``mamba2_scan`` at zamba2's N 64 and up to
 xLSTM's N 1024, P 1025, per-head q and k); a reduced xLSTM (d_model 256:
 N 256 a head) on the kernel path against its plain path within 1e-4;
+a reduced granite-moe (top-2 of 4 experts, decode at capacity 1) on the
+kernel path against its plain path within 1e-4 (fp32) / 2e-2 (bf16), its
+MoE output the same bits on a second call;
 the hierarchy: ``wc_trips`` bit-equal to the plain trip loop on a
 refinement round's candidates (``synthetic_layered(32, 16)``, both
 placements), a hierarchical ``place()`` and ``replace()`` on the kernel
@@ -813,6 +816,55 @@ def test_reduced_xlstm_kernel_path_matches_plain(cuda):
     for got, ref in zip(out["cuda"], out["torch"]):
         scale = max(float(ref.abs().max()), 1.0)
         assert float((got - ref).abs().max()) / scale <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_granite_kernel_path_matches_plain(cuda, dtype):
+    """granite_moe_3b_a800m.reduced() (top-2 of 4 experts) on the card:
+    train-mode logits and aux, prefill and three decode steps (capacity 1:
+    assignments dropped) on the kernel path within 1e-4 (fp32) / 2e-2
+    (bf16) of max(|plain|, 1) of the plain path, one ``flash_attention``
+    launch a layer in each full-sequence pass; the MoE's output the same
+    bits on a second call."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mlp, steps, transformer
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m").reduced(),
+                              compute_dtype=dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    params = transformer.cast_params(
+        transformer.init_params(cfg, 0, device=cuda), cfg)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
+    out = {}
+    for backend in ("cuda", "torch"):
+        before = fa_ops.launches
+        with torch.inference_mode():
+            full, _, aux = transformer.model_apply(params, cfg,
+                                                   {"tokens": toks},
+                                                   attn_backend=backend)
+            state = transformer.init_decode_state(
+                cfg, 2, 40, dtype=getattr(torch, dtype), device=cuda)
+            pre, state = steps.make_prefill_step(cfg, 40, backend)(
+                params, {"tokens": toks[:, :37]}, state)
+            dec = []
+            for i in range(37, 40):
+                lg, state = steps.make_decode_step(cfg, backend)(
+                    params, {"tokens": toks[:, i:i + 1]}, state, i)
+                dec.append(lg)
+        assert fa_ops.launches - before == (4 if backend == "cuda" else 0)
+        out[backend] = [full, pre, *dec]
+        assert float(aux) > 0
+    for got, ref in zip(out["cuda"], out["torch"]):
+        scale = max(float(ref.float().abs().max()), 1.0)
+        assert float((got.float() - ref.float()).abs().max()) / scale <= tol
+    moe = tree_map(lambda t: t[0], params["unit"][0])["moe"]
+    x = torch.randn(80, cfg.d_model, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    with torch.inference_mode():
+        route = mlp.moe_route(moe, x, cfg.moe)
+        y1 = mlp.moe_experts(moe, x, route, cfg.moe, cfg.act)
+        y2 = mlp.moe_experts(moe, x, route, cfg.moe, cfg.act)
+    assert torch.equal(y1, y2)
 
 
 # ------------------------------------- checkpoints and the baselines
