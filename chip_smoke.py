@@ -279,7 +279,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    expert's capacity in a prefill and a decode step; then one profiled
    prefill and decode step of granite and paligemma (device ms by
    kernel and by kind: flash, gemm, sort, gather / scatter, ...).
-15. prints the ``kernels`` JSON line and, last, the result line.
+15. LM training, run right after item 14, before item 13, through
+   ``models/steps.py``'s ``make_train_step`` (``lm_loss`` ->
+   ``model_apply(mode="train")`` -> clip 1.0 -> AdamW): on CUDA the flash
+   and scan kernels run forward inside their ``autograd.Function``s and
+   the plain versions' gradients backward.  15a: zamba2-1.2B at full
+   width and depth (38 layers, f32 params, bf16 compute, remat: each
+   repetition of the unit under activation checkpointing), batch 4 x seq
+   2048 of ``SyntheticTokenStream`` (seed 0), 8 steps at
+   ``cosine_schedule(3e-4, 3e-5, 8, warmup=1)``.  Gates: (i) step 0's
+   gradients on the kernel backends against the plain backends, each
+   leaf's gap over its max within the plain path's own bf16-vs-fp32 gap
+   (its largest over the leaves; the largest share of the same leaf's
+   own gap printed beside it); (ii) the same in fp32 over one 6-layer
+   unit, within 1e-4 of each leaf's max; (iii) the loss on step 0's
+   batch after the 8 steps below step 0's; (iv) every loss and gradient
+   finite.  The
+   wrappers' counts: 12 ``flash_fwd_wgmma`` and 62 ``mamba2_scan``
+   launches a step (the unit's 30 Mamba2 blocks and 6 shared attentions
+   twice under remat, the 2 remainder blocks once).  Prints each step's
+   loss, grad norm and seconds, tokens per second and peak memory, a
+   profiled step's device split, the kernels' forwards' share of it and
+   the plain backward recompute's (each Function's backward in device
+   time under the profiler).  15b: one step each of gemma-2b (1 layer,
+   ``flash_fwd_mma`` at d 256), xlstm-1.3b (one 8-layer unit: the scan at
+   N 1024 and the sLSTM loop under autograd), granite-moe (2 layers),
+   musicgen (2) and paligemma (2, the 256 patches) at full width, batch
+   1 x seq 512, gate (i) and the fp32 gate (1e-4 of each leaf's max) on
+   each, launches checked; xlstm's gradients are ill-conditioned at
+   random init (PATH15B_CALIBRATED), so its fp32 gate's bar is what the
+   plain path's gradient moves under scan outputs perturbed within
+   SSD_TOL, and its gate (i) is printed.
+16. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -319,7 +350,8 @@ from repro_torch.core.heuristics import (  # noqa: E402
     critical_path_assignment, round_robin_assignment)
 from repro_torch.core.hierarchy import (ExpandingEngine,  # noqa: E402
                                         HierarchyConfig, propose_moves)
-from repro_torch.core.nn import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.nn import (tree_leaves, tree_map,  # noqa: E402
+                                 value_and_grad)
 from repro_torch.core.placeto import PlacetoTrainer  # noqa: E402
 from repro_torch.core.policy_io import (load_policy,  # noqa: E402
                                         load_pretrained, save_policy,
@@ -359,11 +391,15 @@ from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
 from repro_torch.models import mlp as moe_mlp  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.steps import (make_decode_step,  # noqa: E402
-                                      make_prefill_step)
+                                      make_eval_step, make_prefill_step,
+                                      make_train_step)
 from repro_torch.models.transformer import init_decode_state  # noqa: E402
 from repro_torch.train.checkpoint import (latest_step,  # noqa: E402
                                           restore_checkpoint)
-from repro_torch.train.optim import AdamState  # noqa: E402
+from repro_torch.train.data import (DataConfig,  # noqa: E402
+                                   SyntheticTokenStream)
+from repro_torch.train.optim import (AdamState, adamw_init,  # noqa: E402
+                                     cosine_schedule)
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -415,6 +451,33 @@ PATH14 = {"granite_moe_3b_a800m": (32, "flash_fwd_wgmma"),
           "paligemma_3b": (18, "flash_fwd_mma")}
 PATH14_NO_FP64 = ("qwen3_moe_235b_a22b",)
 PATH14_PROFILED = ("granite_moe_3b_a800m", "paligemma_3b")
+# path 15: LM training through make_train_step.  15a: zamba2-1.2B at full
+# width and depth (f32 params, bf16 compute, remat), TRAIN15_STEPS steps
+# on SyntheticTokenStream's batches (seed 0) at cosine_schedule(
+# *TRAIN15_LR); step 0's gradients gated against the plain backends in
+# bf16 (each leaf within the plain path's own bf16-vs-fp32 gap, its
+# largest over the leaves: one rounding flip of an attention output
+# moves a leaf as far as bf16 itself does, so a leaf's own gap is no
+# bar) and in fp32 over one 6-layer unit (LOGITS_TOL of each leaf's
+# max).  15b: one step a family at full width over PATH15B's layers,
+# batch PATH15B_BATCH x PATH15B_SEQ, both gates.  qwen3-moe trains on
+# the CPU only: 2 of its 94 layers hold 6.2e9 params, ~100 GB with
+# gradients and AdamW moments in f32
+TRAIN15_ARCH, TRAIN15_BATCH, TRAIN15_SEQ, TRAIN15_STEPS = \
+    "zamba2_1p2b", 4, 2048, 8
+TRAIN15_LR = (3e-4, 3e-5, TRAIN15_STEPS, 1)
+PATH15B = {"gemma_2b": 1, "xlstm_1p3b": 8, "granite_moe_3b_a800m": 2,
+           "musicgen_large": 2, "paligemma_3b": 2}
+PATH15B_BATCH, PATH15B_SEQ = 1, 512
+# xlstm-1.3b's 8-layer unit has ill-conditioned gradients at random init:
+# forward differences of ~1e-6 moved its fp32 gradients by 4.3e-4 of a
+# leaf's max on the card, and bf16 moves them by more than the leaf's max
+# (median over leaves 1.08; PERF.md), so neither fixed bar tells a right
+# kernel from a wrong one there.  Its fp32 gate is calibrated instead:
+# within what the plain path's gradient moves when its scans' outputs are
+# perturbed within the kernel's own forward bar (SSD_TOL of max(|y|, 1));
+# gate (i) is printed beside it
+PATH15B_CALIBRATED = ("xlstm_1p3b",)
 # the training path: Stage I and Stage II at the policy's published width
 # on the placement slice's main shape; the gate (kernel backends vs plain
 # on the card, from one state) at the reference's bars: losses relative,
@@ -2126,6 +2189,362 @@ def path14(dev) -> tuple[dict, dict]:
           f"launches a prefill " + str({a: r["launches"] for k in by_kernel
                                         for a, r in by_kernel[k].items()}))
     return by_kernel["flash_fwd_wgmma"], by_kernel["flash_fwd_mma"]
+
+
+# ------------------------------------------------------- LM training path
+def _zero_lm_counts() -> None:
+    fa_ops.launches = ssd_ops.launches = 0
+    fa_ops.kernel_launches.update(flash_fwd_wgmma=0, flash_fwd_mma=0)
+
+
+def _lm_counts() -> dict:
+    return {"mamba2_scan": ssd_ops.launches, **fa_ops.kernel_launches}
+
+
+def step_launches(cfg) -> dict:
+    """The kernel launches one train step of ``cfg`` makes: one a block's
+    forward, twice for the unit's blocks under remat (the recompute in
+    the backward pass; the remainder runs once, as the reference's
+    ``jax.checkpoint`` wraps only its scan body); the plain backward
+    launches none."""
+    unit, reps, rem = lm.unit_and_reps(cfg)
+    k = 2 if cfg.remat and cfg.remat_policy == "full" else 1
+    n = lambda kinds: (k * reps * sum(x in kinds for x in unit)
+                       + sum(x in kinds for x in rem))
+    attn = n(lm.ATTN_KINDS)
+    wgmma = fa_ops.uses_wgmma(lm.dtype_of(cfg.compute_dtype), cfg.head_dim)
+    return {"mamba2_scan": n(("mamba", "mlstm")),
+            "flash_fwd_wgmma": attn if wgmma else 0,
+            "flash_fwd_mma": 0 if wgmma else attn}
+
+
+def lm_grads(params, cfg, batch, backend) -> tuple:
+    """``lm_loss`` and its gradients at ``params``, attention and the
+    scans on ``backend``; -> (ce, aux, grads)."""
+    (_, (ce, aux)), grads = value_and_grad(
+        lambda p: lm.lm_loss(p, cfg, batch, attn_backend=backend,
+                             ssm_backend=backend), params, has_aux=True)
+    return float(ce), float(aux), grads
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Each leaf's path, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in
+                leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in
+                leaf_names(t, f"{prefix}{i}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def leaf_gaps(got, ref) -> list:
+    """Per leaf: max |got - ref| over max |ref| (0 where both are 0)."""
+    out = []
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        gap, top = float((a - b).abs().max()), float(b.abs().max())
+        out.append(gap / top if top else (0.0 if gap == 0 else float("inf")))
+    return out
+
+
+def hold_grads(what, kern, plain, plain32=None, tol=None,
+               gated: bool = True) -> dict:
+    """Gradients on the kernel backends against the plain backends, leaf
+    by leaf, each gap over the leaf's max, within ``tol`` or, given
+    ``plain32`` (the plain gradient at compute dtype fp32 from the same
+    params and batch), within the plain path's own bf16 gap: its largest
+    leaf gap to ``plain32``, as the serving gates take the largest gap
+    over all logits.  Beside it, a reading: the largest share of the same
+    leaf's own bf16 gap.  Every gradient finite.  Printed before it is
+    checked."""
+    names = leaf_names(kern)
+    gaps = leaf_gaps(kern, plain)
+    own = leaf_gaps(plain, plain32) if plain32 is not None else None
+    bar = max(own) if own is not None else tol
+    finite = all(bool(torch.isfinite(g).all()) for g in
+                 tree_leaves(kern) + tree_leaves(plain))
+    worst = int(np.argmax(gaps))
+    line = (f"{what}: gradients, kernel vs plain backends, {len(gaps)} "
+            f"leaves: max gap over the leaf's max {gaps[worst]} "
+            f"({names[worst]}), bar {bar}")
+    share = None
+    if own is not None:
+        shares = [g / b if b else (0.0 if g == 0 else float("inf"))
+                  for g, b in zip(gaps, own)]
+        k = int(np.argmax(shares))
+        share = shares[k]
+        line += (f" (the plain path's bf16-vs-fp32 gap, at "
+                 f"{names[int(np.argmax(own))]}; median over leaves "
+                 f"{float(np.median(own))}); reading: largest share of the "
+                 f"same leaf's own gap {share} ({names[k]}: {gaps[k]} vs "
+                 f"{own[k]})")
+    print(line + f"; finite {finite}" + ("" if gated else "; not gated"))
+    check(finite, f"{what}: finite gradients")
+    check(gaps[worst] <= bar or not gated,
+          f"{what}: gradient gap {gaps[worst]} at {names[worst]} > {bar}")
+    return {"max_gap": gaps[worst], "bar": bar, "leaf": names[worst],
+            "largest_share_of_own_leaf_gap": share}
+
+
+def gate_grads(what, params, cfg, batch, gated: bool = True) -> dict:
+    """Gate (i): the kernel backends' gradients against the plain
+    backends', within the plain path's own bf16-vs-fp32 gap; -> its
+    record, with the plain fp32 gradient (``plain32``) for 15b's fp32
+    gate.  ``gated=False``: printed, not checked."""
+    ce, aux, kern = lm_grads(params, cfg, batch, "cuda")
+    ce_p, _, plain = lm_grads(params, cfg, batch, "torch")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ce32, _, plain32 = lm_grads(params, cfg32, batch, "torch")
+    print(f"{what}: ce kernel {ce} plain {ce_p} plain fp32 {ce32}, aux {aux}")
+    check(all(np.isfinite([ce, ce_p, ce32, aux])), f"{what}: finite losses")
+    out = hold_grads(what, kern, plain, plain32, gated=gated)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return {**out, "ce": ce, "ce_plain": ce_p, "ce_plain_fp32": ce32,
+            "plain32": plain32}
+
+
+def backward_recompute_ms(cfg, batch_shape, dev) -> dict:
+    """Device ms of one backward of each kernel's Function (the plain
+    recompute and its gradient) at ``cfg``'s train shapes, random
+    inputs: the profiler's kernel time over 3 backwards."""
+    B, S = batch_shape
+    gen = torch.Generator(dev).manual_seed(15)
+    cdt = lm.dtype_of(cfg.compute_dtype)
+
+    def device_ms(y, wrt):
+        g = torch.randn_like(y)
+        torch.autograd.grad(y, wrt, g, retain_graph=True)      # warm-up
+        _, _, rows = _trace(lambda: [torch.autograd.grad(
+            y, wrt, g, retain_graph=True) for _ in range(3)], cpu=False)
+        return sum(r[0] for r in rows) * 1e-3 / 3
+    out = {}
+    if any(k in lm.ATTN_KINDS for k in cfg.block_pattern):
+        q, k, v = (t.requires_grad_() for t in _qkv(
+            gen, B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cdt, dev))
+        out["flash_attention"] = device_ms(
+            fa_ops.flash_attention(q, k, v, backend="cuda"), (q, k, v))
+        del q, k, v
+    if "mamba" in cfg.block_pattern:
+        H, N = cfg.ssm.n_heads, cfg.ssm.state_dim
+        P = cfg.ssm.expand * cfg.d_model // H
+        q, k, v, log_a, _ = _ssd_inputs(gen, B, S, H, N, P, dev)
+        leaves = [t.detach().requires_grad_() for t in
+                  (q[:, :, 0], k[:, :, 0], v, log_a)]
+        qq, kk = (t[:, :, None].expand(B, S, H, N) for t in leaves[:2])
+        y, _ = ssd_ops.ssd_scan(qq, kk, leaves[2], leaves[3], cfg.ssm.chunk,
+                                backend="cuda")
+        out["mamba2_scan"] = device_ms(y, leaves)
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(step_fn, params, opt, batch, step) -> dict:
+    """One more train step under ``torch.profiler`` (device only): device
+    ms by kind (``device_split``) and the kernels' forwards' share."""
+    traced_s, _, rows = _trace(lambda: step_fn(params, opt, batch, step),
+                               ("flash_fwd", "ssd_"), cpu=False)
+    busy_ms = sum(r[0] for r in rows) * 1e-3
+    split = device_split(rows)
+    print(f"profiled train step: traced_s={traced_s:.6f} device_busy_ms="
+          f"{busy_ms:.3f} device_launches={sum(r[1] for r in rows)} by "
+          f"kind " + ", ".join(f"{k} {ms:.3f} ms / {n}" for k, (ms, n)
+                               in split.items()))
+    for us, count, key in rows[:8]:
+        print(f"  {us * 1e-3:10.3f} ms  {count:6d} x  {key[:90]}")
+    return {"traced_s": traced_s, "device_busy_ms": busy_ms,
+            "split": {k: ms for k, (ms, _) in split.items()}}
+
+
+def path15a(dev) -> dict:
+    """15a: zamba2-1.2B trained at full width and depth (38 layers, f32
+    params, bf16 compute, remat) through ``make_train_step``: gates (i)
+    and (ii) on step 0's gradients, TRAIN15_STEPS steps on the kernel
+    backends with their launches counted, gates (iii) and (iv), a
+    profiled step and the Functions' backward timed."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN15_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.param_dtype,
+           cfg.compute_dtype, cfg.remat, cfg.remat_policy)
+          == (38, 2048, 32000, "float32", "bfloat16", True, "full"),
+          "zamba2-1.2B at its published width and depth, remat on")
+    B, S = TRAIN15_BATCH, TRAIN15_SEQ
+    params = lm.init_params(cfg, 0, device=dev)
+    stream = SyntheticTokenStream(cfg, DataConfig(S, B, seed=0), device=dev)
+    batches = [stream.next_batch() for _ in range(TRAIN15_STEPS)]
+    gate_i = gate_grads(f"{cfg.name} {cfg.n_layers} layers, bf16, step 0",
+                        params, cfg, batches[0])
+    del gate_i["plain32"]
+    cfg6 = dataclasses.replace(cfg, n_layers=6, compute_dtype="float32")
+    p6 = lm.init_params(cfg6, 0, device=dev)
+    _, _, kern = lm_grads(p6, cfg6, batches[0], "cuda")
+    _, _, plain = lm_grads(p6, cfg6, batches[0], "torch")
+    gate_ii = hold_grads(f"{cfg.name} fp32, one full-width unit (6 "
+                         f"layers)", kern, plain, tol=LOGITS_TOL)
+    del p6, kern, plain
+    torch.cuda.empty_cache()
+    t_gates = time.perf_counter()
+
+    step_fn = make_train_step(cfg, cosine_schedule(*TRAIN15_LR))
+    opt = adamw_init(params)
+    per_step = step_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    rows = []
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, i)
+        torch.cuda.synchronize()
+        rows.append({"loss": float(m["loss"]), "grad_norm":
+                     float(m["grad_norm"]), "lr": float(m["lr"]),
+                     "s": time.perf_counter() - t})
+    launches = _lm_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, r in enumerate(rows):
+        print(f"train {cfg.name} step {i}: loss={r['loss']:.6f} grad_norm="
+              f"{r['grad_norm']:.6f} lr={r['lr']:.6e} s={r['s']:.6f}")
+    after = float(make_eval_step(cfg)(params, batches[0])["loss"])
+    mean_s = float(np.mean([r["s"] for r in rows[1:]]))
+    print(f"train {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32 params, {cfg.compute_dtype} compute, remat, "
+          f"{CARD}): batch {B} x seq {S}, {TRAIN15_STEPS} steps: "
+          f"s_per_step(steps 1-{TRAIN15_STEPS - 1})={mean_s:.6f} "
+          f"tokens_per_s={B * S / mean_s:.1f} first_step_s="
+          f"{rows[0]['s']:.6f} peak_memory_gb={peak_gb:.3f} launches "
+          f"{launches} ({per_step} a step: the unit's blocks twice under "
+          f"remat, the 2 remainder Mamba2 blocks once); loss on step 0's "
+          f"batch after {TRAIN15_STEPS} steps {after} (step 0: "
+          f"{rows[0]['loss']})")
+    check(launches == {k: TRAIN15_STEPS * n for k, n in per_step.items()}
+          and per_step == {"mamba2_scan": 62, "flash_fwd_wgmma": 12,
+                           "flash_fwd_mma": 0},
+          f"{TRAIN15_STEPS} remat'd zamba2 steps launch flash_fwd_wgmma 12x "
+          f"and mamba2_scan 62x a step: {launches}")
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows)
+          and np.isfinite(after), "finite losses and gradient norms")
+    check(after < rows[0]["loss"], f"the loss after {TRAIN15_STEPS} steps "
+                                   f"{after} < step 0's {rows[0]['loss']}")
+    t_train = time.perf_counter()
+    prof = profile_train_step(step_fn, params, opt, batches[0],
+                              TRAIN15_STEPS)
+    bwd = backward_recompute_ms(cfg, (B, S), dev)
+    kern_fwd = sum(prof["split"].get(k, 0.0) for k in ("flash",
+                                                       "mamba2_scan"))
+    blocks = step_launches(dataclasses.replace(cfg, remat=False))
+    bwd_ms = (bwd["flash_attention"] * blocks["flash_fwd_wgmma"]
+              + bwd["mamba2_scan"] * blocks["mamba2_scan"])
+    print(f"a step's device time: {prof['device_busy_ms']:.3f} ms; the "
+          f"kernels' forwards {kern_fwd:.3f} ms "
+          f"({kern_fwd / prof['device_busy_ms']:.4f}); their plain backward "
+          f"recompute ~{bwd_ms:.3f} ms "
+          f"({bwd_ms / prof['device_busy_ms']:.4f}: "
+          f"{blocks['flash_fwd_wgmma']} flash and {blocks['mamba2_scan']} "
+          f"scan backwards at {bwd} device ms each)")
+    del params, opt
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"path 15a wall s: {t1 - t0:.3f} (gates {t_gates - t0:.3f}, "
+          f"train {t_train - t_gates:.3f}, profile {t1 - t_train:.3f})")
+    return {"per_step": per_step, "launches": launches, "steps": rows,
+            "s_per_step": mean_s, "tokens_per_s": B * S / mean_s,
+            "peak_memory_gb": peak_gb, "loss_after": after,
+            "gate_i": gate_i, "gate_ii": gate_ii, "profile": prof,
+            "backward_ms": bwd, "kernel_forward_ms": kern_fwd,
+            "backward_recompute_ms": bwd_ms}
+
+
+@contextlib.contextmanager
+def _perturbed_scans(rel: float, dev):
+    """Inside the block each ``ssd_scan`` call runs the plain version and
+    adds fixed noise to y, uniform within ``rel`` of max(|y|, 1): a
+    forward error as large as the kernel's bar allows."""
+    f, gen = ssd_ops.ssd_scan, torch.Generator(dev).manual_seed(15)
+
+    def noisy(q, k, v, log_a, chunk, state=None, backend="cuda"):
+        y, st = f(q, k, v, log_a, chunk, state, backend="torch")
+        amp = rel * max(float(y.detach().abs().max()), 1.0)
+        noise = torch.rand(y.shape, generator=gen, device=y.device)
+        return y + (2 * noise - 1) * amp, st
+    ssd_ops.ssd_scan = noisy
+    try:
+        yield
+    finally:
+        ssd_ops.ssd_scan = f
+
+
+def calibrated_bar(params, cfg32, batch, dev) -> float:
+    """The largest leaf gap (over the leaf's max) between the plain fp32
+    gradients with and without ``_perturbed_scans(SSD_TOL)``, remat off
+    (the recompute would draw other noise)."""
+    cfg = dataclasses.replace(cfg32, remat=False)
+    _, _, plain = lm_grads(params, cfg, batch, "torch")
+    with _perturbed_scans(SSD_TOL, dev):
+        _, _, moved = lm_grads(params, cfg, batch, "torch")
+    return max(leaf_gaps(moved, plain))
+
+
+def path15b(dev) -> dict:
+    """15b: one train step a family at full width and a cut depth
+    (PATH15B), batch PATH15B_BATCH x PATH15B_SEQ: gate (i) and the fp32
+    gate on its gradients (PATH15B_CALIBRATED: the calibrated fp32 gate,
+    gate (i) printed), its launches counted."""
+    out = {}
+    for arch, L in PATH15B.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=L)
+        params = lm.init_params(cfg, 0, device=dev)
+        batch = SyntheticTokenStream(
+            cfg, DataConfig(PATH15B_SEQ, PATH15B_BATCH, seed=0),
+            device=dev).next_batch()
+        calibrated = arch in PATH15B_CALIBRATED
+        gate = gate_grads(f"{cfg.name} {L} layers, bf16", params, cfg, batch,
+                          gated=not calibrated)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        tol = (calibrated_bar(params, cfg32, batch, dev) if calibrated
+               else LOGITS_TOL)
+        _, _, kern32 = lm_grads(params, cfg32, batch, "cuda")
+        gate["fp32"] = hold_grads(
+            f"{cfg.name} {L} layers, fp32" + (
+                " (bar: the plain gradient's move under scans perturbed "
+                f"within SSD_TOL {SSD_TOL})" if calibrated else ""),
+            kern32, gate.pop("plain32"), tol=tol)
+        del kern32
+        step_fn = make_train_step(cfg, cosine_schedule(*TRAIN15_LR))
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_lm_counts()
+        t = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch, 1)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        launches = _lm_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = step_launches(cfg)
+        print(f"train {cfg.name} ({L} layers, full width, {CARD}): batch "
+              f"{PATH15B_BATCH} x seq {PATH15B_SEQ}, one step: s="
+              f"{step_s:.6f} loss={float(m['loss']):.6f} grad_norm="
+              f"{float(m['grad_norm']):.6f} peak_memory_gb={peak_gb:.3f} "
+              f"launches {launches} (want {want}); wall s "
+              f"{time.perf_counter() - t0:.3f}")
+        check(launches == want and sum(want.values()) > 0,
+              f"{cfg.name}: one step's launches {launches} == {want}")
+        check(bool(torch.isfinite(m["loss"])) and bool(
+            torch.isfinite(m["grad_norm"])), f"{cfg.name}: finite step")
+        out[arch] = {"layers": L, "launches": launches, "step_s": step_s,
+                     "peak_memory_gb": peak_gb, "gate_i": gate}
+        del params, opt, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def path15(dev) -> dict:
+    """Path 15: LM training, 15a then 15b."""
+    t0 = time.perf_counter()
+    res = {"15a": path15a(dev), "15b": path15b(dev)}
+    print(f"path 15 wall s: {time.perf_counter() - t0:.3f}")
+    return res
 
 
 # ---------------------------------------------------------- training path
@@ -4088,6 +4507,28 @@ def main() -> int:
     # records (PERF.md, Findings)
     by_name["flash_attention"]["path14"], \
         by_name["flash_attention_mma"]["path14"] = path14(dev)
+
+    # path 15: LM training through make_train_step (zamba2-1.2B at full
+    # width and depth, then one step a family at a cut depth): the flash
+    # and scan kernels forward under autograd, the plain versions'
+    # gradients backward.  Before path 13, whose profiled prefill leaves
+    # later profiler sessions without kernel records
+    p15 = path15(dev)
+    a15, b15 = p15["15a"], p15["15b"]
+    by_name["flash_attention"]["path15"] = {
+        "zamba2_per_step": a15["per_step"]["flash_fwd_wgmma"],
+        "zamba2_steps": a15["launches"]["flash_fwd_wgmma"],
+        **{a: r["launches"]["flash_fwd_wgmma"] for a, r in b15.items()
+           if r["launches"]["flash_fwd_wgmma"]}}
+    by_name["flash_attention_mma"]["path15"] = {
+        a: r["launches"]["flash_fwd_mma"] for a, r in b15.items()
+        if r["launches"]["flash_fwd_mma"]}
+    by_name["mamba2_scan"]["path15"] = {
+        "zamba2_per_step": a15["per_step"]["mamba2_scan"],
+        "zamba2_steps": a15["launches"]["mamba2_scan"],
+        **{a: r["launches"]["mamba2_scan"] for a, r in b15.items()
+           if r["launches"]["mamba2_scan"]}}
+    del p15, a15, b15
 
     # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
     # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).

@@ -90,12 +90,13 @@ def argmin_first(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """Leaves in ``jax.tree_util`` flatten order (dict keys sorted)."""
+    """Leaves in ``jax.tree_util`` flatten order (dict keys sorted);
+    ``None`` is an empty slot, no leaf, as in a JAX pytree."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def tree_map(fn, tree, *rest):
@@ -110,6 +111,23 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return None if tree is None else fn(tree, *rest)
+
+
+def value_and_grad(loss_fn, params, has_aux: bool = False):
+    """``jax.value_and_grad`` over a tree of tensors: (value, grads shaped
+    like ``params``), the value detached; a leaf the loss does not reach
+    gets a zero gradient, as in JAX.  With ``has_aux``, ``loss_fn``
+    returns (loss, aux) and the value is that pair."""
+    p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    out = loss_fn(p)
+    loss = out[0] if has_aux else out
+    leaves = tree_leaves(p)
+    gs = (torch.autograd.grad(loss, leaves, allow_unused=True)
+          if loss.requires_grad else [None] * len(leaves))
+    by_id = {id(x): torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, gs)}
+    grads = tree_map(lambda x: by_id[id(x)], p)
+    return tree_map(torch.Tensor.detach, out), grads
 
 
 def tree_size(tree) -> int:

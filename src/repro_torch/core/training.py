@@ -66,7 +66,7 @@ from .graph import DataflowGraph
 from .heuristics import critical_path_assignment
 from .hierarchy import (HierarchicalPolicy, HierarchyConfig, RefineState,
                         project_assignment, refine_assignment)
-from .nn import tree_leaves, tree_map
+from .nn import tree_map, value_and_grad
 from .policies import init_policies
 from .sim_torch import ORACLE_BACKENDS, SimGraph, TorchWCEngine
 from .simulator import WCSimulator
@@ -79,19 +79,15 @@ def _value_and_grad(loss_fn, params, mark: Mark | None = None):
     """(loss, grads shaped like ``params``); a leaf the loss does not
     reach gets a zero gradient, as in JAX.  ``mark`` (Stage I) ends the
     "replay" and "backward" phases."""
-    p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    loss = loss_fn(p)
-    if mark:
-        mark("replay")
-    leaves = tree_leaves(p)
-    gs = (torch.autograd.grad(loss, leaves, allow_unused=True)
-          if loss.requires_grad else [None] * len(leaves))
-    by_id = {id(x): torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, gs)}
-    grads = tree_map(lambda x: by_id[id(x)], p)
+    def replay(p):
+        loss = loss_fn(p)
+        if mark:
+            mark("replay")
+        return loss
+    loss, grads = value_and_grad(replay, params)
     if mark:
         mark("backward")
-    return loss.detach(), grads
+    return loss, grads
 
 
 def _replay(params, gd: GraphData, actions, encoder_backend: str):

@@ -17,6 +17,12 @@ h // G, so the reference wrapper's ``repeat`` of K and V and its transposes
 to (B*H, S, d) have no counterpart here.  Any S is taken (the ragged last
 tile is masked); the reference's Pallas launcher asks for a multiple of
 its block.
+
+Under autograd a CUDA call is a ``torch.autograd.Function``: its forward
+launches the kernel (and counts the launch, also when activation
+checkpointing runs it again), its backward recomputes the plain version
+from the saved q, k and v and differentiates that.  The reference has no
+backward kernel either: its models train through the XLA twin.
 """
 from __future__ import annotations
 
@@ -96,13 +102,32 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     return out
 
 
+class _Flash(torch.autograd.Function):
+    """The kernel forward; the backward of the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_ref(*inputs, ctx.causal)
+        return (*torch.autograd.grad(out, inputs, g), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, backend: str = "cuda"
                     ) -> torch.Tensor:
     """q: (B, S, Hq, d); k, v: (B, S, Hkv, d) with Hq % Hkv == 0, one
     float dtype.  Softmax(q kᵀ / sqrt(d)) v with fp32 scores, running max,
     denominator and accumulator; masked scores are -1e30 and the
-    denominator is floored at 1e-30.  Returns (B, S, Hq, d) in q's dtype."""
+    denominator is floored at 1e-30.  Returns (B, S, Hq, d) in q's dtype.
+    On CUDA the kernel runs forward under autograd too, the plain
+    version's gradient backward."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown flash_attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
@@ -110,4 +135,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal)
+    return _Flash.apply(q, k, v, causal)

@@ -28,6 +28,14 @@ per head), the per-chunk states, the state chain over the chunks, and the
 chunk outputs.  The wrapper allocates their scratch: the scores' lower
 64 x 64 tiles and the (B*H, n_chunks, P, N) chunk states (537 MB a call
 at xLSTM's prefill).
+
+Under autograd a CUDA call is a ``torch.autograd.Function``: its forward
+launches the kernels (one count a call, also when activation
+checkpointing runs it again), its backward recomputes the plain version
+(``ssd_scan_ref``) from the saved inputs and differentiates that, giving
+q, k, v, ``log_a`` and the carried-in state gradients of the caller's
+shapes (the broadcast q and k and a pitched v included).  The reference
+has no backward kernel either: its models train through ``chunked_gla``.
 """
 from __future__ import annotations
 
@@ -137,13 +145,36 @@ def _launch(q, k, v, log_a, chunk, state):
     return y[..., :P], st
 
 
+class _Scan(torch.autograd.Function):
+    """The kernels forward; the backward of the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, chunk, state):
+        ctx.chunk = chunk
+        ctx.save_for_backward(q, k, v, log_a, state)
+        return _launch(q, k, v, log_a, chunk, state)
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_()
+                  for t in saved]
+        wrt = [t for t in inputs if t is not None]
+        with torch.enable_grad():
+            y, st = ssd_scan_ref(*inputs[:4], ctx.chunk, inputs[4])
+        grads = iter(torch.autograd.grad((y, st), wrt, (gy, gst)))
+        g = [None if t is None else next(grads) for t in inputs]
+        return (*g[:4], None, g[4])
+
+
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_a: torch.Tensor, chunk: int,
              state: torch.Tensor | None = None, backend: str = "cuda"):
     """Chunked gated linear attention.  q, k: (B, S, H, N); v: (B, S, H,
     P); log_a: (B, S, H) <= 0; state: (B, H, P, N) carried in, or None for
     zeros.  Returns y (B, S, H, P) and the final state (B, H, P, N), both
-    float32."""
+    float32.  On CUDA the kernels run forward under autograd too, the
+    plain version's gradient backward."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown mamba2_scan backend {backend!r}; "
                          f"expected one of {BACKENDS}")
@@ -151,4 +182,4 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ssd_scan_ref(q, k, v, log_a, chunk, state)
     if q.device.type != "cuda":
         raise ValueError(f"mamba2_scan: unsupported device {q.device}")
-    return _launch(q, k, v, log_a, chunk, state)
+    return _Scan.apply(q, k, v, log_a, chunk, state)

@@ -24,7 +24,12 @@ def _chunk_gla(q, k, v, log_a, state):
     diff = cum[:, :, None, :] - cum[:, None, :, :]            # (B, L, L, H)
     L = q.shape[1]
     tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
-    M = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+    tri = tri[None, :, :, None]
+    # masked before the exp as well: above the diagonal diff > 0 grows
+    # along the chunk and exp overflows (cum falls by ~180 over zamba2's
+    # 256), and the gradient of where(tri, inf, 0) is 0 * inf = NaN.  The
+    # reference's _chunk_gla masks only after it; forward values agree
+    M = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
     qk = torch.einsum("blhn,bmhn->blmh", q, k)                # (B, L, L, H)
     y_intra = torch.einsum("blmh,bmhp->blhp", qk * M, v)
     # inter-chunk: contribution of the carried state

@@ -13,6 +13,8 @@ import torch.nn.functional as F
 
 from ..core.nn import at_least_f32, tree_map
 
+IGNORE_ID = -1          # a label position the loss skips
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -114,3 +116,16 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap and cap > 0:
         return torch.tanh(x / cap) * cap
     return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = IGNORE_ID) -> torch.Tensor:
+    """Mean token cross-entropy in fp32 (fp64 logits stay fp64) over the
+    labels that are not ``ignore_id``, the count floored at 1.  logits
+    (..., V), labels (...)."""
+    logits = at_least_f32(logits)
+    mask = labels != ignore_id
+    gold = logits.gather(-1, torch.where(mask, labels, 0)[..., None].long())
+    nll = torch.logsumexp(logits, dim=-1) - gold[..., 0]
+    m = mask.to(logits.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)

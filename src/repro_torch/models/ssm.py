@@ -11,7 +11,8 @@ reference's decode has no kernel either.
 
 sLSTM keeps the exponential-gated scalar recurrence with the
 max-stabilizer, which is sequential: a Python loop over time (the
-reference's ``lax.scan``), in plain PyTorch.  No TPU kernel stands behind
+reference's ``lax.scan``), in plain PyTorch; each step makes new
+tensors, so autograd differentiates it as it is.  No TPU kernel stands behind
 it, and none is ported here.
 
 The reference's simplifications are kept: Mamba2's short causal conv is
@@ -148,9 +149,10 @@ def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
     gates = at_least_f32(xin @ params["w_if"]).reshape(B, S, 2 * H)
     i_g = torch.exp(gates[..., :H].clamp(-10.0, 5.0))        # (B, S, H)
     log_f = F.logsigmoid(gates[..., H:])                     # <= 0
-    # v·i and i written into one buffer at the kernel's row pitch
+    # v·i and i written into one buffer at the kernel's row pitch (copies
+    # into a fresh buffer, which autograd follows)
     v_aug = ssd_ops.pitched(B, S, H, P + 1, v.dtype, v.device)
-    torch.mul(v, i_g[..., None], out=v_aug[..., :P])
+    v_aug[..., :P] = v * i_g[..., None]
     v_aug[..., P] = i_g
     if step:
         y_aug, state = gla_step(q[:, 0], k[:, 0], v_aug[:, 0], log_f[:, 0],

@@ -18,34 +18,46 @@ precomputed frame embeddings instead; for the vision stub (paligemma)
 patch embeddings put in front of the token embeddings, so a prompt of S
 tokens fills ``n_patches + S`` positions.
 
-Modes: 'train' (full-sequence forward; no loss or backward here),
+Modes: 'train' (full-sequence forward, differentiated by ``lm_loss``),
 'prefill' (the same forward, filling the decode state) and 'decode' (one
 token against the carried state).  Train and prefill run attention through
 the ``flash_attention`` kernel and the Mamba2 and mLSTM scans through
 the ``mamba2_scan`` kernel; both backends default to "cuda" on the card
-and "torch" (the plain versions) on the CPU.  The sLSTM recurrence and
-the MoE's dispatch and expert products are plain PyTorch on either.
+and "torch" (the plain versions) on the CPU.  Under autograd each kernel
+runs forward and the plain version's gradient backward (the kernels'
+``autograd.Function``s).  The sLSTM recurrence and the MoE's dispatch and
+expert products are plain PyTorch on either.
+
+Mixed precision is the reference's: each block casts its float32
+matrices to the compute dtype at use (``cast_block_params``), the
+embedding rows after the lookup and the head at the product, so a weight
+used more than once (the shared attention, a tied embedding) gathers its
+gradient in float32.  Serving casts once at load (``cast_params``), which
+makes those casts no-ops.  Training (``lm_loss``) takes the float32
+parameters as they are; with ``cfg.remat`` (policy "full") each
+repetition of the unit runs under activation checkpointing, as the
+reference's ``jax.checkpoint`` over its scan body, and runs forward again
+in the backward pass.
 
 State: decode writes the new token's K and V into the caches it is given,
 in place, and prefill writes the prompt's (the reference returns updated
 copies; here a cache copy per step is avoided).  SSD, mLSTM and sLSTM
 states and conv tails are returned as new tensors, as in the reference.
-
-Not ported yet: LM training (``lm_loss``, ROADMAP A11.4), which raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.nn import tree_map
 from ..kernels.flash_attention import ops as fa_ops
 from .attention import decode_attention
-from .common import (apply_norm, apply_rope, cast_block_params, dense_init,
-                     dtype_of, embed_init, softcap)
+from .common import (IGNORE_ID, apply_norm, apply_rope, cast_block_params,
+                     cross_entropy_loss, dense_init, dtype_of, embed_init,
+                     softcap)
 from .config import ModelConfig
 from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 from .ssm import (init_mamba2, init_mlstm, init_slstm, mamba2_forward,
@@ -56,8 +68,6 @@ ATTN_KINDS = ("attn", "attn_shared")
 SSM_INIT = {"mamba": init_mamba2, "mlstm": init_mlstm, "slstm": init_slstm}
 PORTED_KINDS = ATTN_KINDS + tuple(SSM_INIT)
 UNPORTED = "not ported to repro_torch yet (ROADMAP A11)"
-TRAINING_UNPORTED = "LM training is not ported to repro_torch yet " \
-    "(ROADMAP A11.4)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -154,10 +164,10 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
 def cast_params(params: dict, cfg: ModelConfig) -> dict:
     """Cast once, at load, what the reference casts at every use:
     matrices to the compute dtype, vectors kept fp32 (the rule of
-    ``cast_block_params``; unit leaves carry a leading repetition axis).
-    The embedding and head are matrices too: the reference casts their
-    rows at lookup and the whole matrix at the head, which gives the same
-    values."""
+    ``cast_block_params``; unit leaves carry a leading repetition axis),
+    so that ``model_apply``'s casts at use are no-ops.  The embedding and
+    head are matrices too: the reference casts their rows at lookup and
+    the whole matrix at the head, which gives the same values."""
     cdt = dtype_of(cfg.compute_dtype)
     out = {k: cast_block_params(v, cdt) for k, v in params.items()
            if k != "unit"}
@@ -279,18 +289,24 @@ def _ssm_block_apply(kind, p, cfg: ModelConfig, x, mode, state, backend):
 
 
 # ================================================================ forward
-def _frontend_embed(params, cfg: ModelConfig, batch: dict):
-    """The model's input (B, S, D) in the compute dtype, the dtype
-    ``cast_params`` gives the embedding (float64 in a float64 copy).  Audio
-    stub: ``batch["frames"]`` (B, S, D), precomputed frame embeddings.
-    Otherwise the embedded ``batch["tokens"]`` (scaled by sqrt(d_model)
-    when the embedding is tied), and for the vision stub
-    ``batch["patches"]`` (B, n_patches, D), when given, in front of
-    them."""
+def _compute_dtype(params, cfg: ModelConfig) -> torch.dtype:
+    """The dtype the model computes in: the config's, or float64 for a
+    float64 copy of the parameters (a numerics reference)."""
     emb = params["embed"]
+    return emb.dtype if emb.dtype == torch.float64 else dtype_of(
+        cfg.compute_dtype)
+
+
+def _frontend_embed(params, cfg: ModelConfig, batch: dict, cdt):
+    """The model's input (B, S, D) in the compute dtype ``cdt``.  Audio
+    stub: ``batch["frames"]`` (B, S, D), precomputed frame embeddings.
+    Otherwise the embedded ``batch["tokens"]`` (rows looked up, then cast,
+    as the reference does; scaled by sqrt(d_model) when the embedding is
+    tied), and for the vision stub ``batch["patches"]`` (B, n_patches, D),
+    when given, in front of them."""
     if cfg.frontend == "audio_stub":
-        return batch["frames"].to(emb.dtype)
-    x = emb[batch["tokens"]]
+        return batch["frames"].to(cdt)
+    x = params["embed"][batch["tokens"]].to(cdt)
     if cfg.tie_embeddings:
         scale = float(np.sqrt(np.float32(cfg.d_model)))   # fp32, as in jnp
         x = x * torch.tensor(scale, dtype=x.dtype)
@@ -301,7 +317,34 @@ def _frontend_embed(params, cfg: ModelConfig, batch: dict):
 
 def _lm_head(params, cfg: ModelConfig, x):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return softcap(x @ w, cfg.logit_softcap)
+    return softcap(x @ w.to(x.dtype), cfg.logit_softcap)
+
+
+def _unstack(tree, n: int) -> list:
+    """The inverse of ``_stack``: one like tree per index of axis 0, as
+    views (``unbind``: their gradients stack back in one copy)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(t, n) for t in tree]
+        return [type(tree)(p[r] for p in parts) for r in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether each repetition of the unit runs under activation
+    checkpointing: ``cfg.remat`` with policy "full" (the reference's
+    ``nothing_saveable``), when a backward pass can follow."""
+    if not (cfg.remat and cfg.remat_policy != "none"
+            and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is {UNPORTED}")
+    return True
 
 
 def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
@@ -309,19 +352,21 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
                 attn_backend: str | None = None,
                 ssm_backend: str | None = None):
     """Returns (logits, new_state, aux_loss), the aux loss the sum of the
-    MoE layers' (0 without MoE).  ``params``: as ``cast_params`` returns
-    them (``launch/serve.py::load_model`` casts at load).  ``batch``:
-    ``tokens`` (B, S) token ids (decode: (B, 1)); the audio stub's
-    ``frames`` (B, S, D) instead; the vision stub's ``patches`` (B,
-    n_patches, D) beside the tokens at train and prefill.  train: no
-    state; prefill: ``state`` from ``init_decode_state``, caches filled
-    from position 0; decode: the carried state, ``cache_pos`` the position
-    of the token (after the patches, for the vision stub)."""
+    MoE layers' (0 without MoE).  ``params``: float32 (``init_params``,
+    cast at use) or as ``cast_params`` returns them (``launch/serve.py::
+    load_model`` casts at load).  ``batch``: ``tokens`` (B, S) token ids
+    (decode: (B, 1)); the audio stub's ``frames`` (B, S, D) instead; the
+    vision stub's ``patches`` (B, n_patches, D) beside the tokens at train
+    and prefill.  train: no state; prefill: ``state`` from
+    ``init_decode_state``, caches filled from position 0; decode: the
+    carried state, ``cache_pos`` the position of the token (after the
+    patches, for the vision stub)."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     unit, reps, rem = unit_and_reps(cfg)
-    x = _frontend_embed(params, cfg, batch)
+    cdt = _compute_dtype(params, cfg)
+    x = _frontend_embed(params, cfg, batch, cdt)
     B, S, _ = x.shape
     default = "cuda" if x.device.type == "cuda" else "torch"
     attn_backend = attn_backend or default
@@ -331,31 +376,50 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     else:
         positions = torch.arange(S, device=x.device)[None, :]
     shared = params.get("shared_attn")
-    aux_total = torch.zeros((), device=x.device)
 
     def block(kind, p, x, st):
-        nonlocal aux_total
+        """One block, its weights cast at use -> (x, state, aux or None)."""
         if kind not in ATTN_KINDS:
-            return _ssm_block_apply(kind, p, cfg, x, mode, st, ssm_backend)
+            return (*_ssm_block_apply(kind, cast_block_params(p, cdt), cfg,
+                                      x, mode, st, ssm_backend), None)
         w = shared if kind == "attn_shared" else p
-        x, st, aux = _attn_block_apply(w, cfg, x, positions, mode, st,
-                                       cache_pos, attn_backend)
-        if aux is not None:
-            aux_total = aux_total + aux
-        return x, st
+        return _attn_block_apply(cast_block_params(w, cdt), cfg, x,
+                                 positions, mode, st, cache_pos,
+                                 attn_backend)
 
+    def unit_rep(x, ps, sts):
+        """One repetition of the unit -> (x, its states, the summed aux)."""
+        aux = torch.zeros((), device=x.device)
+        new = []
+        for kind, p, st in zip(unit, ps, sts):
+            x, st, a = block(kind, p, x, st)
+            new.append(st)
+            if a is not None:
+                aux = aux + a
+        return x, new, aux
+
+    remat = state is None and _remat(cfg)
+    aux_total = torch.zeros((), device=x.device)
+    unit_params = list(zip(*(_unstack(p, reps) for p in params["unit"])))
     new_unit = [[] for _ in unit]
-    for r in range(reps):
-        for i, kind in enumerate(unit):
-            p = tree_map(lambda t: t[r], params["unit"][i])
-            st = None if state is None else tree_map(lambda t: t[r],
-                                                     state["unit"][i])
-            x, st = block(kind, p, x, st)
-            new_unit[i].append(st)
+    for r, ps in enumerate(unit_params):
+        if remat:
+            x, aux = checkpoint(
+                lambda x, ps: unit_rep(x, ps, [None] * len(unit))[::2], x,
+                ps, use_reentrant=False)
+        else:
+            sts = [None] * len(unit) if state is None else [
+                tree_map(lambda t: t[r], st) for st in state["unit"]]
+            x, sts, aux = unit_rep(x, ps, sts)
+            for i, st in enumerate(sts):
+                new_unit[i].append(st)
+        aux_total = aux_total + aux
     new_rem = []
     for i, kind in enumerate(rem):
         st = None if state is None else state["rem"][i]
-        x, st = block(kind, params["rem"][i], x, st)
+        x, st, aux = block(kind, params["rem"][i], x, st)
+        if aux is not None:
+            aux_total = aux_total + aux
         new_rem.append(st)
 
     new_state = None
@@ -368,5 +432,22 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     return logits, new_state, aux_total
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError(TRAINING_UNPORTED)
+# =================================================================== loss
+def lm_loss(params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01,
+            attn_backend: str | None = None,
+            ssm_backend: str | None = None):
+    """(ce + aux_weight * aux, (ce, aux)): the mean token cross-entropy of
+    the train-mode logits against ``batch["labels"]`` (IGNORE_ID masked;
+    the vision stub's patch positions prepended as ignored) and the MoE
+    layers' summed aux loss.  ``params`` in float32, as ``init_params``
+    gives them."""
+    logits, _, aux = model_apply(params, cfg, batch, mode="train",
+                                 attn_backend=attn_backend,
+                                 ssm_backend=ssm_backend)
+    labels = batch["labels"]
+    if cfg.frontend == "vision_stub":
+        pad = labels.new_full((labels.shape[0], batch["patches"].shape[1]),
+                              IGNORE_ID)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = cross_entropy_loss(logits, labels, IGNORE_ID)
+    return ce + aux_weight * aux, (ce, aux)

@@ -867,6 +867,125 @@ def test_reduced_granite_kernel_path_matches_plain(cuda, dtype):
     assert torch.equal(y1, y2)
 
 
+# ------------------------------------------- the kernels under autograd
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,dtype", [
+    (2, 300, 4, 4, 64, torch.bfloat16),      # flash_fwd_wgmma (zamba2's d)
+    (1, 257, 4, 1, 256, torch.bfloat16),     # flash_fwd_mma at gemma's d
+    (2, 200, 4, 2, 64, torch.float32)])      # flash_fwd_mma, 3xTF32
+def test_flash_attention_grads_match_plain(cuda, B, S, Hq, Hkv, d, dtype):
+    """Under autograd a CUDA call still launches its kernel (counted) and
+    its q, k and v gradients are the plain version's, within the forward
+    bars (2e-5 in fp32, 2e-2 in bf16, of max(|plain|, 1))."""
+    q0, k0, v0 = _qkv(cuda, B, S, Hq, Hkv, d, dtype, S + d)
+    g = torch.randn(B, S, Hq, d, device=cuda).to(dtype)
+    name = "flash_fwd_wgmma" if fa_ops.uses_wgmma(dtype, d) else \
+        "flash_fwd_mma"
+    res = {}
+    for backend in ("cuda", "torch"):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        before = dict(fa_ops.kernel_launches)
+        out = fa_ops.flash_attention(q, k, v, backend=backend)
+        assert out.requires_grad
+        out.backward(g)
+        torch.cuda.synchronize()
+        launched = fa_ops.kernel_launches[name] - before[name]
+        assert launched == (1 if backend == "cuda" else 0)
+        res[backend] = (out, q.grad, k.grad, v.grad)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for got, ref in zip(res["cuda"], res["torch"]):
+        assert got.dtype == dtype and got.shape == ref.shape
+        scale = max(float(ref.float().abs().max()), 1.0)
+        assert float((got.float() - ref.float()).abs().max()) / scale <= tol
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk,shared,state", [
+    (2, 300, 4, 64, 64, 128, True, False),      # zamba2's N, broadcast q, k
+    (2, 300, 4, 64, 64, 128, True, True),
+    (1, 300, 2, 1024, 1025, 128, False, True),  # xLSTM's N, pitched v
+    (1, 200, 2, 1024, 1025, 256, False, False)])
+def test_mamba2_scan_grads_match_plain(cuda, B, S, H, N, P, chunk, shared,
+                                       state):
+    """Under autograd a CUDA call still launches the kernels (counted);
+    the gradients of q, k (one (B, S, N) leaf broadcast over the heads,
+    or per head), v (built in ``pitched`` at P 1025, as the mLSTM's),
+    log_a and the carried-in state are the plain version's within 1e-4 of
+    max(|plain|, 1), the kernel's forward bar."""
+    q0, k0, v0, la0, st0 = _ssd_inputs(cuda, B, S, H, N, P, S + N, False,
+                                       state)
+    if shared:
+        q0, k0 = q0[:, :, 0].contiguous(), k0[:, :, 0].contiguous()
+    g = torch.Generator(cuda).manual_seed(5)
+    gy = torch.randn(B, S, H, P, generator=g, device=cuda)
+    gst = torch.randn(B, H, P, N, generator=g, device=cuda)
+    res = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_() if t is not None else None
+                  for t in (q0, k0, v0, la0, st0)]
+        q, k = ((t[:, :, None].expand(B, S, H, N) if shared else t)
+                for t in leaves[:2])
+        v = ssd_ops.pitched(B, S, H, P, device=cuda)
+        v[...] = leaves[2] * 1.0
+        before = ssd_ops.launches
+        y, fin = ssd_ops.ssd_scan(q, k, v, leaves[3], chunk, leaves[4],
+                                  backend=backend)
+        torch.autograd.backward((y, fin), (gy, gst))
+        torch.cuda.synchronize()
+        assert ssd_ops.launches - before == (1 if backend == "cuda" else 0)
+        res[backend] = [y, fin] + [t.grad for t in leaves if t is not None]
+    for got, ref in zip(res["cuda"], res["torch"]):
+        assert got.shape == ref.shape
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) / scale <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_1p3b",
+                                  "granite_moe_3b_a800m"])
+def test_reduced_train_step_kernels_match_plain(cuda, arch):
+    """One ``make_train_step`` step of a reduced config in fp32 with remat
+    on the card: the kernel path's loss within 1e-5 relative, its
+    gradients within 1e-4 of each leaf's max and its params after AdamW
+    within lr / 100 of the plain path's (2 lr where a gradient is within
+    1e-3 of its leaf's max of 0: AdamW's first step is lr times its
+    sign); each kernel of the unit launched twice (the forward and
+    remat's recompute)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.nn import value_and_grad
+    from repro_torch.models import steps, transformer
+    from repro_torch.train.data import DataConfig, SyntheticTokenStream
+    from repro_torch.train.optim import adamw_init
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True,
+                              compute_dtype="float32")
+    params = transformer.init_params(cfg, 0, device=cuda)
+    batch = SyntheticTokenStream(cfg, DataConfig(40, 2), cuda).next_batch()
+    unit, reps, rem = transformer.unit_and_reps(cfg)
+    res = {}
+    for backend in ("cuda", "torch"):
+        before = (fa_ops.launches, ssd_ops.launches)
+        (_, (ce, _)), grads = value_and_grad(
+            lambda p: transformer.lm_loss(p, cfg, batch, attn_backend=backend,
+                                          ssm_backend=backend),
+            params, has_aux=True)
+        step = steps.make_train_step(cfg, 1e-3, attn_backend=backend,
+                                     ssm_backend=backend)
+        new, _, metrics = step(params, adamw_init(params), batch, 0)
+        torch.cuda.synchronize()
+        n = (fa_ops.launches - before[0], ssd_ops.launches - before[1])
+        want = (2 * 2 * reps * sum(k in ("attn", "attn_shared")
+                                   for k in unit),
+                2 * (2 * reps * sum(k in ("mamba", "mlstm") for k in unit)
+                     + sum(k in ("mamba", "mlstm") for k in rem)))
+        assert n == (want if backend == "cuda" else (0, 0))
+        res[backend] = (ce, grads, new)
+    (ce, g, p), (ce_r, g_r, p_r) = res["cuda"], res["torch"]
+    assert abs(float(ce) - float(ce_r)) <= 1e-5 * abs(float(ce_r))
+    for a, b in zip(tree_leaves(g), tree_leaves(g_r)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for a, b, gr in zip(tree_leaves(p), tree_leaves(p_r), tree_leaves(g_r)):
+        clear = gr.abs() > 1e-3 * gr.abs().max()
+        bar = torch.where(clear, 1e-3 / 100, 2e-3 + 1e-3 / 100)
+        assert bool(((a - b).abs() <= bar).all())
+
+
 # ------------------------------------- checkpoints and the baselines
 def test_fused_resume_after_capture(cuda, tmp_path):
     """Trainer B captures its fused engine (one update), then loads A's

@@ -316,20 +316,6 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     assert "CUDA is not available" in out.stderr
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "musicgen_large",
-                                  "paligemma_3b"])
-def test_unported_parts_raise(arch):
-    """The MoE and the stub frontends serve (tests/test_torch_moe.py,
-    tests/test_torch_frontends.py); LM training is what stays unported
-    for these configs, and it raises, citing its roadmap item."""
-    cfg = get_config(arch).reduced()
-    transformer.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.4"):
-        transformer.lm_loss({}, cfg, {})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.4"):
-        steps.make_train_step(cfg)
-
-
 def test_every_arch_resolves():
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == \
