@@ -310,18 +310,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    random init (PATH15B_CALIBRATED), so its fp32 gate's bar is what the
    plain path's gradient moves under scan outputs perturbed within
    SSD_TOL, and its gate (i) is printed.
-16. prints the ``kernels`` JSON line and, last, the result line.
+16. serving and the LM training driver, run right after item 15, before
+   item 13: 16a serves olmo-1b (16 layers, non-parametric LayerNorm, tied
+   head, H = KV 16), phi4-mini-3.8b (32 layers, GQA 24/8, a tied
+   vocabulary of 200,064) and qwen1.5-110b (full width, QKV bias, rope
+   theta 1e6, untied head; 4 of its 80 layers) with path 14's request and
+   gates (the fp64 reading not for qwen1.5), ``flash_attention`` first
+   held against its plain version and timed at each prefill shape; one
+   prefill launches ``flash_fwd_wgmma`` (d 128) once a layer: 16, 32 and
+   4; phi4's prefill profiled.  16b: ``repro_torch.launch.train.main``
+   in-process, olmo-1b at full width and depth (f32 params, bf16 compute,
+   remat), batch 4 x seq 2048, 8 steps: every loss and grad norm finite,
+   32 ``flash_fwd_wgmma`` launches a step (16 forwards, 16 remat reruns);
+   the driver's resume at full width over one layer (batch 1 x seq 512,
+   4 steps, a checkpoint every 2 in a temporary directory): step 3 set
+   aside, the run again resumes from step 2, and the two step-3
+   ``arrays.msgpack`` are the same bytes; one step through
+   ``make_int8_grad_transform`` (one layer, fp32) on the card against the
+   same step on the CPU copy of its inputs at the LM training tests' step
+   bars (tests/test_torch_lm_train.py; a code may differ only where the
+   CPU's clipped gradient lies within the gradient gap of a rounding
+   boundary).
+17. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import filecmp
 import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -384,6 +407,7 @@ from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
 from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
                                                wc_trips_ref)
 from repro_torch.launch import doppler_train  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
                                       prompt_inputs, prompt_positions,
@@ -396,6 +420,8 @@ from repro_torch.models.steps import (make_decode_step,  # noqa: E402
 from repro_torch.models.transformer import init_decode_state  # noqa: E402
 from repro_torch.train.checkpoint import (latest_step,  # noqa: E402
                                           restore_checkpoint)
+from repro_torch.train.compression import (  # noqa: E402
+    int8_quantize, make_int8_grad_transform)
 from repro_torch.train.data import (DataConfig,  # noqa: E402
                                    SyntheticTokenStream)
 from repro_torch.train.optim import (AdamState, adamw_init,  # noqa: E402
@@ -478,6 +504,32 @@ PATH15B_BATCH, PATH15B_SEQ = 1, 512
 # perturbed within the kernel's own forward bar (SSD_TOL of max(|y|, 1));
 # gate (i) is printed beside it
 PATH15B_CALIBRATED = ("xlstm_1p3b",)
+# path 16a: the three dense configs no other path serves, path 14's
+# request and gates; per config the layers served and the flash kernel
+# its bf16 prefill runs (d 128 in all three).  qwen1.5-110b at full width
+# over 4 of its 80 layers: a layer holds 1.36e9 params (2.7 GB of bf16),
+# 80 do not fit one card; 4 hold 7.9e9 with the two vocabulary matrices
+# (16 GB of bf16, 32 GB for the fp32 gate's copy: no fp64 reading)
+PATH16 = {"olmo_1b": (16, "flash_fwd_wgmma"),
+          "phi4_mini_3p8b": (32, "flash_fwd_wgmma"),
+          "qwen1p5_110b": (4, "flash_fwd_wgmma")}
+PATH16_NO_FP64 = ("qwen1p5_110b",)
+PATH16_PROFILED = ("phi4_mini_3p8b",)
+# path 16b: the LM training driver (launch/train.py) in-process, olmo-1b
+# at full width and depth (f32 params, bf16 compute, remat), no
+# checkpoint; then its resume at full width over one layer (a ~2 GB
+# checkpoint in a temporary directory), unbroken against resumed bit for
+# bit; then one step through the int8 gradient transform on the card
+# against the same step on the CPU copy of its inputs (fp32, one layer),
+# at the LM training tests' step bars (tests/test_torch_lm_train.py), the
+# gradient gap widened by one int8 code where the CPU's clipped gradient
+# lies within the gap of a rounding boundary
+TRAIN16_ARCH = "olmo_1b"
+TRAIN16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "4", "--seq", "2048",
+                "--steps", "8", "--log-every", "1"]
+RESUME16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "1", "--seq", "512",
+                 "--steps", "4", "--ckpt-every", "2", "--log-every", "1"]
+INT8_BATCH, INT8_SEQ = 1, 512
 # the training path: Stage I and Stage II at the policy's published width
 # on the placement slice's main shape; the gate (kernel backends vs plain
 # on the card, from one state) at the reference's bars: losses relative,
@@ -1952,9 +2004,11 @@ def xlstm_path(dev) -> dict:
 
 
 # ------------------------------------------------------------- path 14
-def path14_config(arch):
-    """``arch`` at its published width, at the depth path 14 serves."""
-    return dataclasses.replace(get_config(arch), n_layers=PATH14[arch][0])
+def path14_config(arch, table=None):
+    """``arch`` at its published width, at the depth path 14 (or
+    ``table``'s path) serves."""
+    table = PATH14 if table is None else table
+    return dataclasses.replace(get_config(arch), n_layers=table[arch][0])
 
 
 @contextlib.contextmanager
@@ -2027,7 +2081,7 @@ def moe_drop_shares(params, cfg, prompt, fed) -> tuple[float, float]:
     return share(drops[:L]), share(drops[L:])
 
 
-def check_flash_path14(dev, cfgs) -> dict:
+def check_flash_path14(dev, cfgs, label="path 14") -> dict:
     """``flash_attention`` against its plain version at each config's
     prefill shape (bf16 at batch 4, fp32 at batch 1: the shapes of its
     serve and its gates), then timed in bf16 at each; -> the timings by
@@ -2053,16 +2107,17 @@ def check_flash_path14(dev, cfgs) -> dict:
         timed[cfg.name] = time_flash(dev, gen, (SERVE_BATCH, S, *shape),
                                      torch.bfloat16, BF16_FLOP_PER_S)
         torch.cuda.empty_cache()
-    print(f"flash_attention vs plain at path 14's prefill shapes (bf16 B "
+    print(f"flash_attention vs plain at {label}'s prefill shapes (bf16 B "
           f"{SERVE_BATCH}, fp32 B 1): max abs err {errs}")
     return timed
 
 
-def path14_gates(arch, cfg, params, prompt, fed, dev) -> dict:
+def path14_gates(arch, cfg, params, prompt, fed, dev,
+                 no_fp64=PATH14_NO_FP64) -> dict:
     """bf16 over the full depth: kernel path vs plain path within the plain
     path's own bf16-vs-fp32 gap; fp32 at batch 1 over the full depth
-    within LOGITS_TOL, the fp64 reading beside it (not for
-    PATH14_NO_FP64), the MoE configs' plain runs forced onto the kernel
+    within LOGITS_TOL, the fp64 reading beside it (not for ``no_fp64``),
+    the MoE configs' plain runs forced onto the kernel
     run's expert choices.  The checks come after both are printed."""
     L = cfg.n_layers
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -2081,7 +2136,7 @@ def path14_gates(arch, cfg, params, prompt, fed, dev) -> dict:
         plain32 = teacher_forced(p32, cfg32, pr1, fed1, "torch",
                                  torch.float32)
     plain64 = None
-    if arch not in PATH14_NO_FP64:
+    if arch not in no_fp64:
         p64 = tree_map(lambda x: x.double() if x.is_floating_point() else x,
                        p32)
         with forced_routes(log, stats64):
@@ -2117,11 +2172,13 @@ def path14_gates(arch, cfg, params, prompt, fed, dev) -> dict:
             "routing_fp64": stats64 if cfg.moe else None}
 
 
-def serve_config14(dev, arch) -> dict:
-    """One config of path 14: served, checked, gated, maybe profiled."""
+def serve_config14(dev, arch, table=PATH14, no_fp64=PATH14_NO_FP64,
+                   profiled=PATH14_PROFILED, label="path 14") -> dict:
+    """One config of path 14 (or of ``table``'s path): served, checked,
+    gated, maybe profiled."""
     t0 = time.perf_counter()
-    cfg = path14_config(arch)
-    L, kernel = PATH14[arch]
+    cfg = path14_config(arch, table)
+    L, kernel = table[arch]
     pub = get_config(arch)
     check(dataclasses.replace(cfg, n_layers=pub.n_layers) == pub,
           f"{cfg.name} at its published width")
@@ -2150,10 +2207,10 @@ def serve_config14(dev, arch) -> dict:
           + (f" dropped_share_prefill={drops[0]:.6f} "
              f"dropped_share_decode_step={drops[1]:.6f}" if drops else ""))
     t_serve = time.perf_counter()
-    gates = path14_gates(arch, cfg, params, prompt, fed, dev)
+    gates = path14_gates(arch, cfg, params, prompt, fed, dev, no_fp64)
     t_gates = time.perf_counter()
     split = None
-    if arch in PATH14_PROFILED:
+    if arch in profiled:
         # launches by the wrappers' counts: a session may lose records
         _, _, split = profile_serve(
             params, cfg, prompt, res, {f"{kernel}<": L, f"{other}<": 0},
@@ -2166,7 +2223,7 @@ def serve_config14(dev, arch) -> dict:
     del params, res
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    print(f"path 14 {cfg.name} wall s: {t1 - t0:.3f} (serve "
+    print(f"{label} {cfg.name} wall s: {t1 - t0:.3f} (serve "
           f"{t_serve - t0:.3f}, gates {t_gates - t_serve:.3f}, profile "
           f"{t1 - t_gates:.3f})")
     return {"kernel": kernel, "launches": launches[kernel], "layers": L,
@@ -2544,6 +2601,255 @@ def path15(dev) -> dict:
     t0 = time.perf_counter()
     res = {"15a": path15a(dev), "15b": path15b(dev)}
     print(f"path 15 wall s: {time.perf_counter() - t0:.3f}")
+    return res
+
+
+# ------------------------------------------------------------- path 16
+def path16a(dev) -> dict:
+    """16a: olmo-1b, phi4-mini-3.8b and qwen1.5-110b (4 layers) served at
+    full width through path 14's functions: ``flash_attention`` against
+    its plain version and timed at each prefill shape, then each config
+    served, its launches counted, gated and (PATH16_PROFILED) profiled;
+    -> the records by arch."""
+    t0 = time.perf_counter()
+    cfgs = {a: path14_config(a, PATH16) for a in PATH16}
+    feats = {a: (c.d_model, c.n_heads, c.n_kv_heads, c.head_dim, c.vocab,
+                 c.norm, c.qkv_bias, c.rope_theta, c.tie_embeddings)
+             for a, c in cfgs.items()}
+    check(feats == {
+        "olmo_1b": (2048, 16, 16, 128, 50304, "nonparametric", False,
+                    1e4, True),
+        "phi4_mini_3p8b": (3072, 24, 8, 128, 200064, "rms", False, 1e4,
+                           True),
+        "qwen1p5_110b": (8192, 64, 8, 128, 152064, "rms", True, 1e6,
+                         False)}, f"path 16's configs: {feats}")
+    check([get_config(a).n_layers for a in PATH16] == [16, 32, 80]
+          and [L for L, _ in PATH16.values()] == [16, 32, 4],
+          "olmo and phi4 at full depth, qwen1.5 at 4 of its 80 layers")
+    print("path 16a params: " + ", ".join(
+        f"{c.name} {c.n_layers} layers {c.n_params():.4g}"
+        for c in cfgs.values()))
+    timed = check_flash_path14(dev, cfgs.values(), "path 16a")
+    out = {}
+    for arch in PATH16:
+        rec = serve_config14(dev, arch, PATH16, PATH16_NO_FP64,
+                             PATH16_PROFILED, "path 16a")
+        rec["kernel_timing"] = timed[cfgs[arch].name]
+        out[arch] = rec
+    print(f"path 16a wall s: {time.perf_counter() - t0:.3f}; flash "
+          f"launches a prefill {({a: r['launches'] for a, r in out.items()})}")
+    return out
+
+
+@contextlib.contextmanager
+def _driver_config(cfg):
+    """Inside the block the training driver's ``get_config`` returns
+    ``cfg`` (the depth cut of the resume check; the driver, as the
+    reference's, has no depth flag)."""
+    f = train_driver.get_config
+    train_driver.get_config = lambda arch: cfg
+    try:
+        yield
+    finally:
+        train_driver.get_config = f
+
+
+def driver_train(dev) -> dict:
+    """olmo-1b at full width and depth through ``train_driver.main``,
+    TRAIN16_ARGV, no checkpoint: every loss and grad norm finite, one
+    ``flash_fwd_wgmma`` launch a layer a forward (32 a step under remat);
+    seconds a step from the driver's per-step ends (each step synced by
+    its log line)."""
+    cfg = get_config(TRAIN16_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.param_dtype,
+           cfg.compute_dtype, cfg.remat, cfg.remat_policy)
+          == (16, 2048, 50304, "float32", "bfloat16", True, "full"),
+          "olmo-1b at its published width and depth, remat on")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_driver.main(TRAIN16_ARGV)
+    launches = _lm_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(out.getvalue().rstrip())
+    n = len(res.metrics)
+    B, S = (int(TRAIN16_ARGV[TRAIN16_ARGV.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    per_step = step_launches(cfg)
+    loss = [float(m["loss"]) for m in res.metrics]
+    gnorm = [float(m["grad_norm"]) for m in res.metrics]
+    ends = res.step_end_s
+    mean_s = (ends[-1] - ends[0]) / (n - 1)
+    print(f"train driver {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_params():.4g} params, f32 params, bf16 "
+          f"compute, remat, {CARD}): batch {B} x seq {S}, {n} steps: "
+          f"s_per_step(steps 1-{n - 1})={mean_s:.6f} tokens_per_s="
+          f"{B * S / mean_s:.1f} first_step_s={ends[0]:.6f} "
+          f"peak_memory_gb={peak_gb:.3f} launches {launches} ({per_step} "
+          f"a step); losses {loss}; grad norms {gnorm}")
+    check(n == 8 and res.start == 0, f"the driver took 8 steps: {n}")
+    check(per_step == {"mamba2_scan": 0, "flash_fwd_wgmma": 32,
+                       "flash_fwd_mma": 0}
+          and launches == {k: n * v for k, v in per_step.items()},
+          f"8 remat'd olmo-1b steps launch flash_fwd_wgmma 32x a step: "
+          f"{launches}")
+    check(all(np.isfinite(loss + gnorm)), "finite losses and grad norms")
+    del res
+    torch.cuda.empty_cache()
+    return {"per_step": per_step, "launches": launches, "loss": loss,
+            "grad_norm": gnorm, "s_per_step": mean_s,
+            "tokens_per_s": B * S / mean_s, "first_step_s": ends[0],
+            "peak_memory_gb": peak_gb}
+
+
+def driver_resume() -> dict:
+    """The driver at full width over one layer (RESUME16_ARGV): the
+    unbroken run saves steps 2 and 3; step 3 set aside, the run again
+    resumes from 2 and saves 3; the two ``arrays.msgpack`` the same
+    bytes."""
+    cfg1 = dataclasses.replace(get_config(TRAIN16_ARCH), n_layers=1)
+    with tempfile.TemporaryDirectory() as tmp, _driver_config(cfg1):
+        tmp = Path(tmp)
+        argv = [*RESUME16_ARGV, "--ckpt-dir", str(tmp / "ck")]
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            a = train_driver.main(argv)
+            t_a = time.perf_counter()
+            (tmp / "ck" / "step_000000003").rename(tmp / "unbroken_3")
+            b = train_driver.main(argv)
+        t_b = time.perf_counter()
+        print(out.getvalue().rstrip())
+        kept = tmp / "unbroken_3" / "arrays.msgpack"
+        again = tmp / "ck" / "step_000000003" / "arrays.msgpack"
+        nbytes = kept.stat().st_size
+        same = filecmp.cmp(kept, again, shallow=False)
+        del a
+        print(f"train driver resume ({cfg1.name} 1 layer, full width, "
+              f"{cfg1.n_params():.4g} params, {CARD}): batch 1 x seq 512, "
+              f"4 steps, checkpoints at 2 and 3 ({nbytes} bytes each): "
+              f"unbroken {t_a - t0:.3f} s, resumed from 2 "
+              f"{t_b - t_a:.3f} s (start {b.start}); final checkpoints "
+              f"bit-equal: {same}")
+        check(b.start == 3, f"the second run resumed from step 2: {b.start}")
+        del b
+    torch.cuda.empty_cache()
+    check(same, "the resumed run's final checkpoint is the unbroken run's, "
+                "bit for bit")
+    return {"bit_equal": same, "checkpoint_bytes": nbytes,
+            "unbroken_s": t_a - t0, "resumed_s": t_b - t_a}
+
+
+def int8_step_gate(dev) -> dict:
+    """One ``make_train_step`` step through ``make_int8_grad_transform``
+    on the card (kernel backends) and on the CPU copy of its inputs (plain
+    backends): olmo-1b at full width over one layer in fp32, batch
+    INT8_BATCH x INT8_SEQ, step 1 of ``cosine_schedule(*TRAIN15_LR)``.
+    Loss and grad norm within TRAIN_LOSS_TOL relative; int8 codes that
+    differ only where the CPU's clipped gradient lies within the gradient
+    gap ((1e-4 + 1e-5) of the leaf's max, tests/test_torch_lm_train.py)
+    of a rounding boundary; mu and the params within that file's step
+    bars at that gap, widened by one code there."""
+    cfg = dataclasses.replace(get_config(TRAIN16_ARCH), n_layers=1,
+                              compute_dtype="float32")
+    sched = cosine_schedule(*TRAIN15_LR)
+    lr = float(sched(1))
+    params = lm.init_params(cfg, 0, device=dev)
+    batch = SyntheticTokenStream(cfg, DataConfig(INT8_SEQ, INT8_BATCH,
+                                                 seed=0),
+                                 device=dev).next_batch()
+    seen, res = {}, {}
+    t0 = time.perf_counter()
+    for where in ("cuda", "cpu"):
+        def recorded(grads, where=where):
+            seen[where] = grads
+            return make_int8_grad_transform()(grads)
+        p = params if where == "cuda" else tree_map(lambda t: t.cpu(),
+                                                    params)
+        b = batch if where == "cuda" else {k: v.cpu()
+                                           for k, v in batch.items()}
+        _zero_lm_counts()
+        res[where] = make_train_step(cfg, sched, grad_transform=recorded)(
+            p, adamw_init(p), b, 1)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launches = _lm_counts()
+            t_card = time.perf_counter()
+    t_cpu = time.perf_counter()
+    (p_k, o_k, m_k), (p_c, o_c, m_c) = res["cuda"], res["cpu"]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    flips = near_n = 0
+    worst = {"params": 0.0, "mu": 0.0}
+    ok = True
+    for gk, gc, pk, pc, mk, mc, nu in zip(
+            tree_leaves(seen["cuda"]), tree_leaves(seen["cpu"]),
+            tree_leaves(p_k), tree_leaves(p_c), tree_leaves(o_k.mu),
+            tree_leaves(o_c.mu), tree_leaves(o_c.nu)):
+        g_max = float(gc.abs().max())
+        scale = float(np.float32(g_max) * np.float32(1 / 127))
+        gap = (LOGITS_TOL + TRAIN_LOSS_TOL) * g_max
+        near = (gc.abs() / scale % 1.0 - 0.5).abs() <= gap / scale
+        flipped = int8_quantize(gk)[0].cpu() != int8_quantize(gc)[0]
+        flips += int(flipped.sum())
+        near_n += int(near.sum())
+        ok &= not bool((flipped & ~near).any())
+        gap_el = torch.where(near, gap + scale, gap)
+        v_hat = nu / (1 - b2 ** 1)
+        bar_p = lr / 100 + lr * torch.clamp(2 * gap_el / (v_hat.sqrt() + eps),
+                                            max=2.0)
+        bar_mu = (1 - b1) * gap_el * 1.01
+        dp, dm = (pk.cpu() - pc).abs(), (mk.cpu() - mc).abs()
+        worst["params"] = max(worst["params"], float((dp / bar_p).max()))
+        worst["mu"] = max(worst["mu"], float((dm / bar_mu).max()))
+    rel = {k: abs(float(m_k[k]) - float(m_c[k])) / abs(float(m_c[k]))
+           for k in ("loss", "grad_norm")}
+    print(f"int8 step ({cfg.name} 1 layer, fp32, batch {INT8_BATCH} x seq "
+          f"{INT8_SEQ}, {CARD}): card vs CPU: loss {float(m_k['loss'])} "
+          f"vs {float(m_c['loss'])}, grad norm {float(m_k['grad_norm'])} "
+          f"vs {float(m_c['grad_norm'])} (relative gaps {rel}, bar "
+          f"{TRAIN_LOSS_TOL}); int8 codes differing {flips}, all within "
+          f"the gradient gap of a rounding boundary: {ok} ({near_n} codes "
+          f"that close); largest share of the step bar: params "
+          f"{worst['params']}, mu {worst['mu']}; launches {launches}; card "
+          f"step {t_card - t0:.3f} s, CPU step {t_cpu - t_card:.3f} s")
+    check(launches == step_launches(cfg), f"the int8 step's launches "
+                                          f"{launches}")
+    check(all(v <= TRAIN_LOSS_TOL for v in rel.values()),
+          f"int8 step: loss and grad norm within {TRAIN_LOSS_TOL}: {rel}")
+    check(float(m_k["lr"]) == float(m_c["lr"]) == np.float32(lr),
+          "int8 step: the same lr")
+    check(ok, "int8 step: a code differs only near a rounding boundary")
+    check(worst["params"] <= 1 and worst["mu"] <= 1,
+          f"int8 step: params and mu within the step bars: {worst}")
+    del params, res, seen
+    torch.cuda.empty_cache()
+    return {"codes_differing": flips, "codes_near_boundary": near_n,
+            "bar_share": worst, "relative_gaps": rel}
+
+
+def path16b(dev) -> dict:
+    """16b: the LM training driver: olmo-1b at full width and depth, the
+    resume check, the int8 step."""
+    t0 = time.perf_counter()
+    out = {"train": driver_train(dev)}
+    t1 = time.perf_counter()
+    out["resume"] = driver_resume()
+    t2 = time.perf_counter()
+    out["int8"] = int8_step_gate(dev)
+    t3 = time.perf_counter()
+    print(f"path 16b wall s: {t3 - t0:.3f} (train {t1 - t0:.3f}, resume "
+          f"{t2 - t1:.3f}, int8 {t3 - t2:.3f})")
+    return out
+
+
+def path16(dev) -> dict:
+    """Path 16: 16a (serving the three dense configs), then 16b (the
+    training driver)."""
+    t0 = time.perf_counter()
+    res = {"16a": path16a(dev), "16b": path16b(dev)}
+    print(f"path 16 wall s: {time.perf_counter() - t0:.3f}")
     return res
 
 
@@ -4529,6 +4835,27 @@ def main() -> int:
         **{a: r["launches"]["mamba2_scan"] for a, r in b15.items()
            if r["launches"]["mamba2_scan"]}}
     del p15, a15, b15
+
+    # path 16: serving olmo-1b, phi4-mini-3.8b and qwen1.5-110b (4 of 80
+    # layers) at full width (flash_fwd_wgmma at d 128), then the LM
+    # training driver (launch/train.py: olmo-1b at full width and depth,
+    # its resume over one layer, one int8-compressed step).  Before path
+    # 13, for the same reason as paths 14 and 15
+    p16 = path16(dev)
+    a16, b16 = p16["16a"], p16["16b"]
+    by_name["flash_attention"]["path16"] = {
+        "serve": {a: {k: r[k] for k in ("launches", "layers", "serve",
+                                        "gates", "kernel_timing")}
+                  for a, r in a16.items()},
+        "train_driver": {"olmo_1b_per_step": b16["train"]["per_step"][
+                             "flash_fwd_wgmma"],
+                         "olmo_1b_steps": b16["train"]["launches"][
+                             "flash_fwd_wgmma"],
+                         "s_per_step": b16["train"]["s_per_step"],
+                         "tokens_per_s": b16["train"]["tokens_per_s"],
+                         "resume_bit_equal": b16["resume"]["bit_equal"],
+                         "int8": b16["int8"]}}
+    del p16, a16, b16
 
     # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
     # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).

@@ -23,6 +23,14 @@ launches the kernel (and counts the launch, also when activation
 checkpointing runs it again), its backward recomputes the plain version
 from the saved q, k and v and differentiates that.  The reference has no
 backward kernel either: its models train through the XLA twin.
+
+``mixed`` (the model's ``attn_mixed_precision``) selects the plain
+version's mode: the probabilities rounded to v's dtype before the product
+with v.  The kernels have one mode, the fp32-P one, as the Pallas kernel:
+a CUDA call launches the same kernel either way (``flash_fwd_wgmma``
+splits P into bf16 hi + lo, ``flash_fwd_mma`` likewise in 16 bits), and
+its backward differentiates the plain version in the mode asked for.  In
+bf16 the two modes differ by P's rounding, within the bf16 bar.
 """
 from __future__ import annotations
 
@@ -106,8 +114,8 @@ class _Flash(torch.autograd.Function):
     """The kernel forward; the backward of the plain version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, mixed=False):
+        ctx.causal, ctx.mixed = causal, mixed
         ctx.save_for_backward(q, k, v)
         return _launch(q, k, v, causal)
 
@@ -115,24 +123,26 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = attention_ref(*inputs, ctx.causal)
-        return (*torch.autograd.grad(out, inputs, g), None)
+            out = attention_ref(*inputs, ctx.causal, ctx.mixed)
+        return (*torch.autograd.grad(out, inputs, g), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, backend: str = "cuda"
-                    ) -> torch.Tensor:
+                    causal: bool = True, backend: str = "cuda",
+                    mixed: bool = False) -> torch.Tensor:
     """q: (B, S, Hq, d); k, v: (B, S, Hkv, d) with Hq % Hkv == 0, one
     float dtype.  Softmax(q kᵀ / sqrt(d)) v with fp32 scores, running max,
     denominator and accumulator; masked scores are -1e30 and the
     denominator is floored at 1e-30.  Returns (B, S, Hq, d) in q's dtype.
     On CUDA the kernel runs forward under autograd too, the plain
-    version's gradient backward."""
+    version's gradient backward.  ``mixed``: the plain version rounds the
+    probabilities to v's dtype (on the CPU, and in the backward); the
+    kernel computes its fp32-P mode either way."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown flash_attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
     if backend == "torch" or q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        return attention_ref(q, k, v, causal, mixed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _Flash.apply(q, k, v, causal)
+    return _Flash.apply(q, k, v, causal, mixed)

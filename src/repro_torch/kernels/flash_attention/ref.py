@@ -51,10 +51,12 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, mixed: bool = False) -> torch.Tensor:
     """q: (B, S, Hq, d); k, v: (B, S, Hkv, d) with Hq % Hkv == 0; query
     head h reads KV head h // G (G = Hq / Hkv), as the reference's
     ``repeat`` does.  Scores and softmax in fp32, scale 1/sqrt(d), masked
     scores -1e30; returns (B, S, Hq, d) in q's dtype.  This is
-    ``gqa_attention`` in its fp32 mode."""
-    return gqa_attention(q, k, v, causal=causal)
+    ``gqa_attention``: in its fp32 mode, or with ``mixed`` the
+    probabilities rounded to v's dtype before the product with v (the
+    reference's ``attn_mixed_precision``)."""
+    return gqa_attention(q, k, v, causal=causal, mixed=mixed)

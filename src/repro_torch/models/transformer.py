@@ -37,7 +37,10 @@ makes those casts no-ops.  Training (``lm_loss``) takes the float32
 parameters as they are; with ``cfg.remat`` (policy "full") each
 repetition of the unit runs under activation checkpointing, as the
 reference's ``jax.checkpoint`` over its scan body, and runs forward again
-in the backward pass.
+in the backward pass.  ``cfg.attn_mixed_precision`` rounds the attention
+probabilities to the compute dtype before their product with v in the
+plain version (prefill, train and decode); the flash kernels compute
+their fp32-P mode either way (``kernels/flash_attention/ops.py``).
 
 State: decode writes the new token's K and V into the caches it is given,
 in place, and prefill writes the prompt's (the reference returns updated
@@ -76,10 +79,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if kinds:
         raise NotImplementedError(f"{cfg.name}: block kinds {kinds} are "
                                   f"{UNPORTED}")
-    if cfg.attn_mixed_precision:
-        # the flash kernel, like the Pallas one, computes the fp32 mode
-        raise NotImplementedError(f"{cfg.name}: bf16 attention products "
-                                  f"(attn_mixed_precision) are {UNPORTED}")
 
 
 # ==================================================================== init
@@ -240,7 +239,8 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
     else:
         # both of the reference's train/prefill paths (attn_impl "full" and
         # "chunked") compute this one function
-        attn = fa_ops.flash_attention(q, k, v, causal=True, backend=backend)
+        attn = fa_ops.flash_attention(q, k, v, causal=True, backend=backend,
+                                      mixed=cfg.attn_mixed_precision)
         if mode == "prefill":
             kc, vc = cache
             kc[:, :S] = k

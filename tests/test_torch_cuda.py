@@ -1249,3 +1249,105 @@ def test_pretrain_first_update_on_the_card_matches_plain(cuda):
     assert np.array_equal(kern.last_update["rewards"],
                           first["update"]["rewards"])
     _assert_same_update(kern, plain)
+
+
+# ------------------------------------- the dense configs and the driver
+def _kernel_vs_plain_logits(cuda, cfg, params, what):
+    """Train-mode logits, a prefill and three decode steps of ``cfg`` on
+    the kernel path and the plain path -> (the kernel path's largest
+    scaled gap, its ``flash_attention`` launches)."""
+    from repro_torch.models import steps, transformer
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=cuda)
+    dt = getattr(torch, cfg.compute_dtype)
+    out, launched = {}, {}
+    for backend in ("cuda", "torch"):
+        before = dict(fa_ops.kernel_launches)
+        with torch.inference_mode():
+            full, _, _ = transformer.model_apply(params, cfg,
+                                                 {"tokens": toks},
+                                                 attn_backend=backend)
+            state = transformer.init_decode_state(cfg, 2, 40, dtype=dt,
+                                                  device=cuda)
+            pre, state = steps.make_prefill_step(cfg, 40, backend)(
+                params, {"tokens": toks[:, :37]}, state)
+            dec = []
+            for i in range(37, 40):
+                lg, state = steps.make_decode_step(cfg, backend)(
+                    params, {"tokens": toks[:, i:i + 1]}, state, i)
+                dec.append(lg)
+        launched[backend] = {k: fa_ops.kernel_launches[k] - before[k]
+                             for k in before}
+        out[backend] = [full, pre, *dec]
+    assert not any(launched["torch"].values()), what
+    err = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1.0)
+              for a, b in zip(out["cuda"], out["torch"]))
+    return err, launched["cuda"]
+
+
+def test_reduced_olmo_mixed_precision_kernel_matches_plain_mixed(cuda):
+    """olmo-1b reduced at head_dim 128 in bf16 with
+    ``attn_mixed_precision``: the kernel path (``flash_fwd_wgmma``, which
+    computes the fp32-P mode) within the bf16 bar 2e-2 of the plain path
+    in the mixed mode (P rounded to bf16), one launch a layer a
+    full-sequence pass."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("olmo_1b").reduced(), d_model=256,
+                              n_heads=2, n_kv_heads=2, head_dim=128,
+                              compute_dtype="bfloat16",
+                              attn_mixed_precision=True)
+    params = transformer.cast_params(
+        transformer.init_params(cfg, 0, device=cuda), cfg)
+    err, launched = _kernel_vs_plain_logits(cuda, cfg, params, "mixed")
+    assert launched == {"flash_fwd_wgmma": 2 * cfg.n_layers,
+                        "flash_fwd_mma": 0}
+    assert err <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_qwen_bias_kernel_path_matches_plain(cuda, dtype):
+    """A qwen1.5-style reduced config (QKV bias, rope theta 1e6, untied
+    head, GQA 8:1 at head_dim 64), its biases and norm scales random: the
+    kernel path within 1e-4 (fp32) / 2e-2 (bf16) of the plain path."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("qwen1p5_110b").reduced(),
+                              d_model=256, n_heads=8, n_kv_heads=1,
+                              head_dim=64, compute_dtype=dtype)
+    assert (cfg.qkv_bias, cfg.rope_theta, cfg.tie_embeddings) == \
+        (True, 1e6, False)
+    params = transformer.init_params(cfg, 0, device=cuda)
+    g = torch.Generator(cuda).manual_seed(2)
+    params = tree_map(lambda t: t + 0.3 * torch.randn(
+        t.shape, generator=g, device=cuda) if t.dim() == 2
+        and t.shape[-1] <= 512 and t.shape[0] == cfg.n_layers else t,
+        params)
+    params = transformer.cast_params(params, cfg)
+    assert float(params["unit"][0]["bq"].abs().max()) > 0
+    err, launched = _kernel_vs_plain_logits(cuda, cfg, params, "qwen")
+    kernel = "flash_fwd_wgmma" if dtype == "bfloat16" else "flash_fwd_mma"
+    assert launched[kernel] == 2 * cfg.n_layers
+    assert err <= (1e-4 if dtype == "float32" else 2e-2)
+
+
+def test_reduced_driver_resume_is_bit_equal_on_the_card(cuda, tmp_path):
+    """``launch/train.py`` on the card, reduced olmo-1b in bf16: 6 steps
+    with a checkpoint every 2, then steps 4 and 5 deleted and the run
+    again, resumed from 2; the two final checkpoints are the same bytes."""
+    import shutil
+    from repro_torch.launch import train
+    argv = ["--arch", "olmo_1b", "--reduced", "--steps", "6", "--batch",
+            "2", "--seq", "64", "--ckpt-every", "2", "--log-every", "1"]
+    res = train.main([*argv, "--ckpt-dir", str(tmp_path / "a")])
+    assert res.params["embed"].device.type == "cuda"
+    assert all(bool(torch.isfinite(m["loss"])) for m in res.metrics)
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    for step in (4, 5):
+        shutil.rmtree(tmp_path / "b" / f"step_{step:09d}")
+    again = train.main([*argv, "--ckpt-dir", str(tmp_path / "b")])
+    assert again.start == 3
+    last = "step_000000005/arrays.msgpack"
+    assert (tmp_path / "a" / last).read_bytes() == \
+        (tmp_path / "b" / last).read_bytes()

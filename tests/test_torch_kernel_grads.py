@@ -37,7 +37,7 @@ def plain_launches(monkeypatch):
 
     def flash(q, k, v, causal):
         calls["flash"] += 1
-        return attention_ref(q, k, v, causal)
+        return attention_ref(q, k, v, causal)   # the kernel's fp32-P mode
 
     def scan(q, k, v, log_a, chunk, state):
         calls["scan"] += 1
@@ -46,9 +46,9 @@ def plain_launches(monkeypatch):
     monkeypatch.setattr(ssd_ops, "_launch", scan)
     monkeypatch.setattr(
         fa_ops, "flash_attention",
-        lambda q, k, v, causal=True, backend="cuda":
-        attention_ref(q, k, v, causal) if backend == "torch" else
-        fa_ops._Flash.apply(q, k, v, causal))
+        lambda q, k, v, causal=True, backend="cuda", mixed=False:
+        attention_ref(q, k, v, causal, mixed) if backend == "torch" else
+        fa_ops._Flash.apply(q, k, v, causal, mixed))
     monkeypatch.setattr(
         ssd_ops, "ssd_scan",
         lambda q, k, v, log_a, chunk, state=None, backend="cuda":
