@@ -331,7 +331,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    bars (tests/test_torch_lm_train.py; a code may differ only where the
    CPU's clipped gradient lies within the gradient gap of a rounding
    boundary).
-17. prints the ``kernels`` JSON line and, last, the result line.
+17. the model-zoo graph importer, run right after item 16, before item
+   13: 17a imports every registry config's ``model:<arch>`` layer (seq
+   256) on the host from fake tensors: n, m, flops by kind and seconds
+   printed, a second import identical, the dense configs' matmul flops
+   equal to their closed form; 17b places ``model:olmo_1b`` and
+   ``model:zamba2_1p2b`` on ``v100x8`` (``DopplerTrainer.place``, 64
+   sampled episodes): 2 pair launches and 1 ``wc_trips`` launch a
+   request, the makespans bit-equal to the CPU oracle's, the encodings
+   within 1e-4 of the CPU's, greedy / best / CP printed; 17c places
+   ``model:olmo_1b:full`` (seq 256, 2 microbatches) through the
+   hierarchy (path 11's gates), then one refine batch at its placement
+   bit-equal to the plain trip loop; 17d runs ``place_server.main`` with
+   its defaults, the first pair launch at each shape held against the
+   plain version.
+18. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -391,8 +405,9 @@ from repro_torch.core.training import (DopplerTrainer,  # noqa: E402
                                        zoo_pretrain_tasks)
 from repro_torch.core.zero_shot import (greedy_place,  # noqa: E402
                                         to_numpy_params)
-from repro_torch.graphs.workloads import (get_workload,  # noqa: E402
-                                          list_workloads, synthetic_layered)
+from repro_torch.graphs import model_zoo  # noqa: E402
+from repro_torch.graphs.workloads import (WORKLOADS,  # noqa: E402
+                                          get_workload, synthetic_layered)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -407,6 +422,7 @@ from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
 from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
                                                wc_trips_ref)
 from repro_torch.launch import doppler_train  # noqa: E402
+from repro_torch.launch import place_server  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
@@ -530,6 +546,19 @@ TRAIN16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "4", "--seq", "2048",
 RESUME16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "1", "--seq", "512",
                  "--steps", "4", "--ckpt-every", "2", "--log-every", "1"]
 INT8_BATCH, INT8_SEQ = 1, 512
+# path 17: the model-zoo graph importer (graphs/model_zoo.py).  17a
+# imports every registry config's model:<arch> layer (DEFAULT_SEQ 256) on
+# the card's host, twice; 17b places ZOO17_PLACE's layers on ZOO17_FLEET
+# (ZOO17_K sampled episodes a request); 17c places ZOO17_FULL (seq 256, 2
+# microbatches) through the hierarchy (HIER_CFG); 17d runs the placement
+# server's CLI with its defaults (model:olmo_1b x mixed_gen4 after a quick
+# pretrain on the gemma_2b and phi4_mini_3p8b layers)
+ZOO17_PLACE = ("olmo_1b", "zamba2_1p2b")
+ZOO17_FLEET = "v100x8"
+ZOO17_K = 64
+ZOO17_FULL = "model:olmo_1b:full"
+ZOO17_DENSE = ("gemma_2b", "phi4_mini_3p8b", "olmo_1b", "qwen1p5_110b",
+               "musicgen_large", "paligemma_3b")
 # the training path: Stage I and Stage II at the policy's published width
 # on the placement slice's main shape; the gate (kernel backends vs plain
 # on the card, from one state) at the reference's bars: losses relative,
@@ -966,7 +995,7 @@ def check_wc_trips(dev, trainers, answers) -> dict:
         cands = np.concatenate([pl.greedy[None], pl.population])
         batches.append(run(SimGraph.build(tr.g, tr.dev, dev), cands,
                            f"the {gname} request's {len(cands)} candidates"))
-    for gname in list_workloads():
+    for gname in sorted(WORKLOADS):           # the four Appendix-D graphs
         g = get_workload(gname)
         for fleet in sorted(PRESETS):
             fm = get_device_model(fleet)
@@ -2853,6 +2882,208 @@ def path16(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------- path 17
+def dense_matmul_flops(cfg, seq: int) -> float:
+    """Matmul flops of one dense layer at batch 1, closed form: the
+    projections, the FFN, and causal attention's scores and values
+    computed in full (what the reference's import counts)."""
+    d, n_ffn = cfg.d_model, 3 if cfg.act in ("swiglu", "geglu") else 2
+    proj = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    return (2.0 * seq * (proj + n_ffn * d * cfg.d_ff)
+            + 4.0 * cfg.n_heads * seq * seq * cfg.head_dim)
+
+
+def _same_graph(a, b) -> bool:
+    return (a.n == b.n and a.outputs == b.outputs
+            and [(v.kind, v.label, v.out_shape) for v in a.vertices]
+            == [(v.kind, v.label, v.out_shape) for v in b.vertices]
+            and np.array_equal(a.flops_array(), b.flops_array())
+            and np.array_equal(a.out_bytes_array(), b.out_bytes_array())
+            and np.array_equal(a.edge_array(), b.edge_array()))
+
+
+def zoo_import_path() -> dict:
+    """17a: every registry config's layer graph at DEFAULT_SEQ, traced on
+    fake tensors on the host (no device memory): n, m, flops by kind and
+    the import's seconds; a second trace identical; the dense configs'
+    matmul flops equal to their closed form."""
+    rows = {}
+    model_zoo._import_model.cache_clear()
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        g = get_workload(f"model:{arch}")
+        s = time.perf_counter() - t0
+        again = model_zoo._import_model.__wrapped__(
+            arch, model_zoo.DEFAULT_SEQ, 1, None, True, 1e4)
+        check(_same_graph(g, again), f"model:{arch}: a second import is "
+                                     f"identical")
+        kinds = {}
+        for v in g.vertices:
+            n, f = kinds.get(v.kind, (0, 0.0))
+            kinds[v.kind] = (n + 1, f + v.flops)
+        mm = kinds.get("matmul", (0, 0.0))[1]
+        if arch in ZOO17_DENSE:
+            want = dense_matmul_flops(get_config(arch), model_zoo.DEFAULT_SEQ)
+            check(mm == want, f"model:{arch}: matmul flops {mm} == the "
+                              f"closed form {want}")
+        rows[arch] = {"n": g.n, "m": g.m, "import_s": s, "matmul_flops": mm,
+                      "flops": g.total_flops(), "kinds": kinds}
+        print(f"zoo import model:{arch} ({CARD}, on the host): n={g.n} "
+              f"m={g.m} flops={g.total_flops():.6e} (matmul {mm:.6e}"
+              + (", the closed form" if arch in ZOO17_DENSE else "")
+              + f") import {s:.6f} s; by kind "
+              + ", ".join(f"{k} {n} {f:.4e}"
+                          for k, (n, f) in sorted(kinds.items())))
+    return rows
+
+
+def zoo_place_path(dev) -> dict:
+    """17b: ``DopplerTrainer.place`` on ZOO17_PLACE's layers x ZOO17_FLEET
+    on the card: 2 pair launches and 1 ``wc_trips`` launch a request; the
+    makespans bit-equal to the CPU oracle's on the same candidates and the
+    encodings within 1e-4 of the CPU's; greedy / best / CP printed."""
+    fm, res = get_device_model(ZOO17_FLEET), {}
+    for arch in ZOO17_PLACE:
+        g = get_workload(f"model:{arch}")
+        tr = DopplerTrainer(g, fm, seed=0, device=dev)
+        check(tr.encoder_backend == tr.oracle_backend == "cuda",
+              f"model:{arch}: backends default to cuda on the card")
+        _uncounted(lambda: (encode(tr.params, tr.gd, tr.encoder_backend),
+                            tr.default_engine().run_batch(
+                                np.zeros((1, g.n), np.int64))))
+        sync(dev)
+        pl, c = _counted(lambda: tr.place(n_samples=ZOO17_K, eps=EPS))
+        check(c == {"gnn_mp_pair": 2, "gnn_mp": 0, "wc_oracle_trips": 1,
+                    "wc_oracle": 0},
+              f"model:{arch}: a request is 2 pair launches and 1 wc_trips "
+              f"launch: {c}")
+        cands = np.concatenate([pl.greedy[None], pl.population])
+        cpu_ms = TorchWCEngine(g, fm, backend="torch",
+                               device="cpu").run_batch(cands)
+        check(np.array_equal(cpu_ms, pl.makespans),
+              f"model:{arch}: card oracle == CPU oracle on "
+              f"{len(cands)} candidates")
+        gd_cpu = build_graph_data(g, fm, tr.comm_factor, "cpu")
+        params_cpu = tree_map(lambda x: x.cpu(), tr.params)
+        err = _uncounted(lambda: max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+            for a, b in zip(encode(tr.params, tr.gd, "cuda"),
+                            encode(params_cpu, gd_cpu, "torch"))))
+        check(err <= 1e-4, f"model:{arch}: card encodings vs CPU, rel err "
+                           f"{err}")
+        cp_ms = _uncounted(lambda: tr.default_engine().exec_time(
+            critical_path_assignment(g, fm, seed=0)))
+        res[arch] = {"n": g.n, "greedy": float(pl.makespans[0]),
+                     "best": pl.makespan, "cp": cp_ms,
+                     "seconds": dict(pl.seconds), "launches": c}
+        sec = pl.seconds
+        print(f"zoo place model:{arch} x {ZOO17_FLEET} ({CARD}): n={g.n} "
+              f"m={g.m} K={ZOO17_K} greedy_ms={pl.makespans[0] * 1e3:.6f} "
+              f"best_ms={pl.makespan * 1e3:.6f} cp_ms={cp_ms * 1e3:.6f} "
+              f"encode_s={sec['encode']:.6f} rollout_s={sec['rollout']:.6f} "
+              f"oracle_s={sec['oracle']:.6f}; launches {c}; card oracle == "
+              f"CPU oracle, encodings rel err {err:.3e}")
+    return res
+
+
+def zoo_full_path(dev) -> dict:
+    """17c: ZOO17_FULL through the hierarchy's ``place()`` on the card
+    (``hier_place``'s gates), then one refine batch at its placement
+    held bit-equal to the plain trip loop (``check_trips``)."""
+    fm = get_device_model(ZOO17_FLEET)
+    t0 = time.perf_counter()
+    g = get_workload(ZOO17_FULL)
+    import_s = time.perf_counter() - t0
+    tr = DopplerTrainer(g, fm, seed=0, device=dev, hierarchy=HIER_CFG)
+    setup_s = time.perf_counter() - t0 - import_s
+    print(f"zoo full {ZOO17_FULL} ({CARD}): n={g.n} m={g.m} n_rep="
+          f"{g.replication.n_rep} imported in {import_s:.6f} s on the host, "
+          f"trainer set-up (coarsen, {tr.hier.n_levels} levels) "
+          f"{setup_s:.6f} s")
+    res = hier_place(tr, ZOO17_FULL)
+    A = refine_batch(tr, res["placement"].assignment)
+    # every row: the plain loop's time follows the longest episode's trips
+    # (host-driven launches), not the rows (on an H100, 3 rows 27.9 s, 49
+    # rows 25.9 s)
+    t0 = time.perf_counter()
+    ok, places = _uncounted(lambda: check_trips(
+        tr.flat_engine().sim_graph, A, f"{ZOO17_FULL}'s refine batch"))
+    check(bool(ok.all()), f"{ZOO17_FULL}: every refine episode done")
+    print(f"zoo full {ZOO17_FULL} ({CARD}): a refine batch of {len(A)} rows "
+          f"bit-equal to the plain trip loop in {places} "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return {"n": g.n, "m": g.m, "import_s": import_s, "setup_s": setup_s,
+            "makespan": res["placement"].makespan,
+            "seconds": dict(res["placement"].seconds),
+            "engine_calls": len(res["calls"]), "refine_rows": len(A)}
+
+
+def zoo_server_path() -> dict:
+    """17d: ``place_server.main`` with its defaults on the card: a quick
+    pretrain on the zoo half, then model:olmo_1b x mixed_gen4 twice (a
+    miss, then a hit)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        place_server.main(["--device", "cuda"])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"place_server ({CARD}): {line}")
+    check(len(lines) == 3
+          and lines[0].startswith("[0] model:olmo_1b on mixed_gen4: ")
+          and "cache_hit=False" in lines[0] and "cache_hit=True" in lines[1]
+          and lines[2] == "server stats: {'hits': 1, 'misses': 1, "
+                          "'cached': 1}",
+          f"place_server's defaults serve model:olmo_1b: {lines}")
+    return {"lines": lines}
+
+
+def path17(dev, by_name) -> None:
+    """Path 17: the importer's graphs imported, placed flat and
+    hierarchically and served on the card; the launch counts are reset
+    before each part and read after it.  17b's and 17c's launches are
+    held by their own gates (the CPU oracle, a refine batch); 17d's pair
+    launches by ``_KernelLog`` (the first at each shape)."""
+    t_path, counts, res = time.perf_counter(), {}, {}
+
+    def part(name, fn):
+        gnn_ops.launches = gnn_ops.pair_launches = 0
+        wc_ops.launches = wc_ops.trip_launches = 0
+        t0 = time.perf_counter()
+        res[name] = fn()
+        counts[name] = _launch_counts()
+        print(f"path {name} wall s ({CARD}): "
+              f"{time.perf_counter() - t0:.3f}; launches {counts[name]}")
+
+    def logged():
+        with _KernelLog() as log:
+            out = zoo_server_path()
+        held = _uncounted(lambda: log.hold("path 17d"))
+        check(held["trips_batches"] == 0 and held["pair_shapes"],
+              f"path 17d: its pair launches held: {held}")
+        return out
+
+    part("17a", zoo_import_path)
+    part("17b", lambda: zoo_place_path(dev))
+    part("17c", lambda: zoo_full_path(dev))
+    part("17d", logged)
+    c = counts
+    check(not any(c["17a"].values())
+          and c["17b"]["gnn_mp_pair"] == 2 * len(ZOO17_PLACE)
+          and c["17b"]["wc_oracle_trips"] == len(ZOO17_PLACE)
+          and c["17c"]["gnn_mp_pair"] == 2 and c["17c"]["wc_oracle_trips"] > 0
+          and c["17d"]["gnn_mp_pair"] > 0
+          and all(p["gnn_mp"] == p["wc_oracle"] == 0 for p in c.values()),
+          f"path 17 ran the gnn_mp pair and wc_trips on the card, no "
+          f"single-direction gnn_mp and no wc_step: {c}")
+    print(f"path 17 wall s ({CARD}): {time.perf_counter() - t_path:.3f}")
+    by_name["gnn_mp_pair"]["zoo"] = {p: v["gnn_mp_pair"]
+                                     for p, v in c.items()}
+    by_name["wc_oracle_trips"]["zoo"] = {p: v["wc_oracle_trips"]
+                                         for p, v in c.items()}
+    by_name["wc_oracle_trips"]["zoo_place"] = res["17b"]
+    by_name["wc_oracle_trips"]["zoo_full"] = res["17c"]
+
+
 # ---------------------------------------------------------- training path
 def _launch_counts() -> dict:
     return {"gnn_mp_pair": gnn_ops.pair_launches, "gnn_mp": gnn_ops.launches,
@@ -2908,6 +3139,11 @@ def gate_update(what: str, kern, plain,
                   / max(1.0, float(gp.abs().max())) for gk, gp in pairs)
     by_tree = max(float((gk - gp).abs().max()) for gk, gp in pairs) / tree
     grad_err = by_tree if tree_scale else by_leaf
+    if grad_err > grad_tol:                  # which leaf, and how large
+        for i, (gk, gp) in enumerate(pairs):
+            print(f"{what}: leaf {i} {tuple(gp.shape)} max|g| "
+                  f"{float(gp.abs().max()):.6e} max diff "
+                  f"{float((gk - gp).abs().max()):.6e} (tree max {tree:.6e})")
     check(grad_err <= grad_tol, f"{what}: gradient error {grad_err}")
     params = ""
     if param_tol is not None:
@@ -4856,6 +5092,12 @@ def main() -> int:
                          "resume_bit_equal": b16["resume"]["bit_equal"],
                          "int8": b16["int8"]}}
     del p16, a16, b16
+
+    # path 17: the model-zoo graph importer: every registry config's
+    # layer graph imported on the host, two placed flat on the card (the
+    # gnn_mp pair, wc_trips), model:olmo_1b:full placed through the
+    # hierarchy, the placement server with its defaults
+    path17(dev, by_name)
 
     # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
     # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).

@@ -132,3 +132,24 @@ def value_and_grad(loss_fn, params, has_aux: bool = False):
 
 def tree_size(tree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+# A loop that the reference runs as one ``lax.scan``.  ``scan(fn, *args)``
+# is ``fn(*args)``; while the graph importer (``graphs/fx_import.py``)
+# traces, it sets ``SCAN_HOOK`` and records the call as one vertex forward
+# and one backward, as the reference's jaxpr holds one ``scan`` equation.
+SCAN_HOOK = None
+
+
+def scan(fn, *args):
+    """``fn(*args)`` (a tuple of tensors), recorded as one loop when the
+    graph importer traces.  Put the argument whose gradient the reference's
+    transposed scan returns first (its consts, then its carry) first."""
+    if SCAN_HOOK is None:
+        return fn(*args)
+    return SCAN_HOOK(fn, args)
+
+
+def tracing() -> bool:
+    """Whether the graph importer is tracing the caller."""
+    return SCAN_HOOK is not None

@@ -119,7 +119,7 @@ class SimGraph:
         if 2 * koff >= 2 ** 24:
             raise ValueError(
                 f"graph too large for exact f32 queue keys "
-                f"(2*koff={2 * koff} >= 2^24)")
+                f"(2*koff={2 * koff} >= 2^24); use the numpy engines")
         dev = resolve_device(device)
 
         def t(a, dtype):

@@ -1024,9 +1024,10 @@ def zoo_pretrain_tasks(archs: Sequence[str] | None = None,
     ``ffnn`` at randomized grids, drawn from ``default_rng(seed)`` as the
     reference draws them).  ``archs`` empty or None means every
     architecture; ``holdout`` architectures are excluded end to end (the
-    zero-shot evaluation set).  The architectures' ``model:`` graphs need
-    the model importer (ROADMAP A11.5) and raise through ``get_workload``:
-    ``holdout=ARCH_IDS`` gives the synthetic half alone."""
+    zero-shot evaluation set).  Each architecture's graph is its
+    ``model:<arch>`` layer at ``seq`` (``graphs/model_zoo.py``, traced
+    from the port's models); ``holdout=ARCH_IDS`` gives the synthetic
+    half alone."""
     from ..configs.registry import ARCH_IDS
     from ..graphs.workloads import get_workload, synthetic_layered
     from .devices import HETERO_FLEETS, get_device_model

@@ -149,20 +149,29 @@ MODEL_PREFIX = "model:"
 
 def list_workloads() -> list[str]:
     """All addressable workload names: the four Appendix-D synthetic
-    graphs.  (The ``model:<arch>`` zoo entries need the model importer,
-    which the port does not have yet.)"""
-    return sorted(WORKLOADS)
+    graphs plus, per registry architecture, one single-block
+    ``model:<arch>`` entry and one full-depth ``model:<arch>:full``
+    training-step entry."""
+    from .model_zoo import FULL_SUFFIX, zoo_model_names
+    return (sorted(WORKLOADS)
+            + [MODEL_PREFIX + a for a in zoo_model_names()]
+            + [MODEL_PREFIX + a + FULL_SUFFIX for a in zoo_model_names()])
 
 
 def get_workload(name: str, **kwargs) -> DataflowGraph:
     """Resolve a workload by name.
 
-    ``model:<arch>`` names raise: importing a registry architecture into
-    a graph is ROADMAP item A11, not ported yet."""
+    ``model:<arch>`` names import one layer of the registry architecture
+    from the port's models (see graphs/model_zoo.py); kwargs are forwarded
+    (seq=, batch=, unit_blocks=, cheap_flops=).  ``model:<arch>:full``
+    names build the full-depth training-step graph (forward + backward of
+    all layers, tiled across ``microbatches=`` copies) — thousands of
+    vertices, placed hierarchically (see graphs/partition.py and
+    core/hierarchy.py)."""
     if name.startswith(MODEL_PREFIX):
-        raise NotImplementedError(
-            f"{name!r}: the model-zoo importer is not ported to repro_torch "
-            f"yet (ROADMAP item A11)")
+        from .model_zoo import import_model
+        return import_model(name[len(MODEL_PREFIX):], **kwargs)
     if name not in WORKLOADS:
-        raise KeyError(f"unknown workload {name!r}; have {sorted(WORKLOADS)}")
+        raise KeyError(f"unknown workload {name!r}; have {sorted(WORKLOADS)} "
+                       f"plus '{MODEL_PREFIX}<arch>' (see list_workloads())")
     return WORKLOADS[name](**kwargs)

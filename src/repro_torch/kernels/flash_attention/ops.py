@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_ref, chunked_attention
 
 BACKENDS = ("torch", "cuda")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -142,7 +142,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown flash_attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
     if backend == "torch" or q.device.type == "cpu":
-        return attention_ref(q, k, v, causal, mixed)
+        # the reference's train and prefill path, a loop over chunks of
+        # 512 queries (one chunk where S is no multiple of 512: the kernel
+        # takes any S)
+        S = q.shape[1]
+        return chunked_attention(q, k, v, chunk=512 if S % 512 == 0 else S,
+                                 causal=causal, mixed=mixed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _Flash.apply(q, k, v, causal, mixed)

@@ -8,10 +8,12 @@ main path calls it.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ...core.nn import at_least_f32
+from ...core.nn import at_least_f32, scan
 
 NEG_INF = -1e30
 
@@ -48,6 +50,39 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
     out = _scores_softmax_out(qg, k, v, mask, softcap, mixed)
     return out.reshape(B, S, Hq, hd)
+
+
+def chunked_attention(q, k, v, *, chunk: int = 512, causal: bool = True,
+                      softcap: float = 0.0, mixed: bool = False):
+    """A loop over query chunks: peak memory O(chunk x T) rather than
+    O(S x T).  The flash-attention kernel computes the same function."""
+    B, S, Hq, hd = q.shape
+    if S <= chunk:
+        return gqa_attention(q, k, v, causal=causal, softcap=softcap,
+                             mixed=mixed)
+    assert S % chunk == 0, (S, chunk)
+    loop = functools.partial(_query_chunks, chunk, causal, softcap, mixed)
+    return scan(loop, k, v, q)[0]
+
+
+def _query_chunks(chunk, causal, softcap, mixed, k, v, q):
+    """The loop over query chunks -> (out,): the reference's ``lax.scan``
+    (k and v its consts), marked as one loop for the graph importer."""
+    B, S, Hq, hd = q.shape
+    T = k.shape[1]
+    kpos = torch.arange(T, device=q.device)
+    outs = []
+    for c0 in range(0, S, chunk):
+        qc = q[:, c0:c0 + chunk]
+        if causal:
+            qpos = c0 + torch.arange(chunk, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+        else:
+            mask = torch.ones(chunk, T, dtype=torch.bool, device=q.device)
+        qg = qc.reshape(B, chunk, k.shape[2], Hq // k.shape[2], hd)
+        outs.append(_scores_softmax_out(qg, k, v, mask, softcap, mixed)
+                    .reshape(B, chunk, Hq, hd))
+    return (torch.cat(outs, dim=1),)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

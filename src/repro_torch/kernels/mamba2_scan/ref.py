@@ -9,10 +9,12 @@ comparisons use it; nothing on the card's main path calls it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from ...core.nn import at_least_f32
+from ...core.nn import at_least_f32, scan
 
 
 def _chunk_gla(q, k, v, log_a, state):
@@ -61,13 +63,22 @@ def chunked_gla(q, k, v, log_a, chunk: int, state=None):
                   for x in (q, k, v, log_a)]
         y, st = chunked_gla(*padded, chunk, state)
         return y[:, :S], st
+    state, y = scan(functools.partial(_gla_loop, chunk), state, q, k, v,
+                    log_a)
+    return y, state
+
+
+def _gla_loop(chunk: int, state, q, k, v, log_a):
+    """The loop over chunks of a chunk-multiple sequence -> (final state,
+    y): the reference's ``lax.scan`` (carry first), marked as one loop for
+    the graph importer."""
     ys = []
-    for c0 in range(0, S, chunk):
+    for c0 in range(0, q.shape[1], chunk):
         y, state = _chunk_gla(q[:, c0:c0 + chunk], k[:, c0:c0 + chunk],
                               v[:, c0:c0 + chunk], log_a[:, c0:c0 + chunk],
                               state)
         ys.append(y)
-    return torch.cat(ys, dim=1), state
+    return state, torch.cat(ys, dim=1)
 
 
 def ssd_scan_ref(q, k, v, log_a, chunk: int, state=None):

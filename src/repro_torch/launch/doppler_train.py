@@ -57,8 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="DOPPLER three-stage training pipeline")
     ap.add_argument("--graph", required=True,
-                    help="chainmm|ffnn|llama_block|llama_layer "
-                         "(model:<arch> names raise until ROADMAP A11.5)")
+                    help="chainmm|ffnn|llama_block|llama_layer|model:<arch>")
     ap.add_argument("--devices", default="p100x4")
     ap.add_argument("--stage1", type=int, default=100,
                     help="Stage-I imitation episodes")
@@ -98,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["learned", "etf"])
     ap.add_argument("--hierarchy", type=int, default=0, metavar="SEGMENTS",
                     help="hierarchical coarsen->place->refine with this "
-                         "target segment count (0 = flat placement)")
+                         "target segment count (0 = flat placement); use "
+                         "for full-model graphs (model:<arch>:full)")
     ap.add_argument("--refine-rounds", type=int, default=2,
                     help="bounded boundary-refinement rounds after "
                          "hierarchical placement")

@@ -21,7 +21,7 @@ fleet" requests with it:
   budget is spent, serving the best assignment seen anywhere.
 
     PYTHONPATH=src python -m repro_torch.launch.place_server \\
-        --workload llama_block --fleet mixed_gen4 --device cpu
+        --workload model:olmo_1b --fleet mixed_gen4 --seq 32 --device cpu
 """
 from __future__ import annotations
 
@@ -194,12 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default=None,
                     help="pretrained checkpoint dir (policy_io."
                          "save_pretrained); omitted = a quick in-process "
-                         "pretrain on the synthetic half of the zoo (the "
-                         "model:<arch> half waits for the model importer, "
-                         "ROADMAP A11.5)")
-    ap.add_argument("--workload", default="llama_block",
-                    help="chainmm|ffnn|llama_block|llama_layer "
-                         "(model:<arch> names raise until ROADMAP A11.5)")
+                         "pretrain on a reduced zoo (gemma_2b and "
+                         "phi4_mini_3p8b layers, one synthetic graph)")
+    ap.add_argument("--workload", default="model:olmo_1b",
+                    help="chainmm|ffnn|llama_block|llama_layer|"
+                         "model:<arch>[:full]")
     ap.add_argument("--fleet", default="mixed_gen4")
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--fine-tune-budget", type=float, default=0.0)
@@ -218,9 +217,9 @@ def main(argv=None):
         server = PlacementServer.from_checkpoint(args.ckpt,
                                                  device=args.device)
     else:
-        from ..configs.registry import ARCH_IDS
         from ..core.training import pretrain, zoo_pretrain_tasks
-        tasks = zoo_pretrain_tasks(holdout=ARCH_IDS, seq=16, n_synthetic=1)
+        tasks = zoo_pretrain_tasks(archs=("gemma_2b", "phi4_mini_3p8b"),
+                                   seq=16, n_synthetic=1)
         pre = pretrain(tasks, rounds=1, batch_size=4, imitation_episodes=1,
                        device=args.device)
         server = PlacementServer(pre["params"], meta=pre["meta"],

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.nn import at_least_f32
+from ..core.nn import at_least_f32, tracing
 from .common import dense_init, gated_act, gelu
 from .config import MoEConfig
 
@@ -130,6 +130,19 @@ def moe_slots(experts: torch.Tensor, n_experts: int, cap: int) -> Slots:
                  source.reshape(-1))
 
 
+def _weigh_kept(keep, w, rows):
+    """(N, D) ``rows`` times (N,) ``w``, a dropped row (``keep`` False)
+    zero: one product with the masked weights.  Traced by the graph
+    importer it is the reference's form, the product and then a ``where``
+    over the rows, whose gradient reads the forward ``where`` (the same
+    values, and the critical path of the reference's graph)."""
+    if tracing():
+        return torch.where(keep[:, None], w[:, None].to(rows.dtype) * rows,
+                           0.0)
+    # a dropped assignment's weight is 0: its (finite) row adds nothing
+    return (w * keep)[:, None].to(rows.dtype) * rows
+
+
 def moe_experts(params: dict, xf: torch.Tensor, route: Route,
                 cfg: MoEConfig, act: str) -> torch.Tensor:
     """Capacity dispatch, the experts and the combine for ``xf`` (T, D)
@@ -145,9 +158,8 @@ def moe_experts(params: dict, xf: torch.Tensor, route: Route,
                   torch.bmm(buf, params["w_up"]))
     out = torch.bmm(h, params["w_down"]).view(E * cap, D)
 
-    # a dropped assignment's weight is 0: its (finite) row adds nothing
-    sw = route.gate.reshape(-1)[plan.order] * plan.keep
-    contrib = sw[:, None].to(xf.dtype) * out[plan.slot]
+    contrib = _weigh_kept(plan.keep, route.gate.reshape(-1)[plan.order],
+                          out[plan.slot])
     # each token's K rows of the sorted order, ascending = by expert
     rank = torch.empty_like(plan.order)
     rank[plan.order] = torch.arange(T * K, device=xf.device)

@@ -27,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.nn import at_least_f32
+from ..core.nn import at_least_f32, scan
 from ..kernels.mamba2_scan import ops as ssd_ops
 from ..kernels.mamba2_scan.ref import _chunk_gla, chunked_gla  # noqa: F401
 from .common import _normal, dense_init
@@ -209,20 +209,12 @@ def slstm_init_state(shape, dtype=torch.float32, device=None) -> tuple:
     return (z, z, z - 1e30, z)
 
 
-def slstm_forward(params, x, cfg: SSMConfig, state=None):
-    """Sequential exponential-gated scalar LSTM with the max-stabilizer,
-    one step per position.  x: (B, S, D); state: (c, n, m, h), each (B,
-    H, P), None for ``slstm_init_state``'s."""
-    B, S, D = x.shape
-    H = cfg.n_heads
-    P = D // H
-    wx = at_least_f32(x @ params["w_gates"]).reshape(B, S, H, 4 * P)
-    r = at_least_f32(params["r_gates"])
-    if state is None:
-        state = slstm_init_state((B, H, P), wx.dtype, x.device)
-    c, n, m, h = state
+def _slstm_loop(r, c, n, m, h, wx):
+    """The recurrence over time: r (H, P, 4P); (c, n, m, h) (B, H, P);
+    wx (B, S, H, 4P) -> (c, n, m, h, hs (B, S, H, P))."""
+    P = r.shape[1]
     hs = []
-    for t in range(S):
+    for t in range(wx.shape[1]):
         g = wx[:, t] + torch.einsum("bhp,hpq->bhq", h, r)    # (B, H, 4P)
         zi, ii, ff, oo = g.split(P, dim=-1)
         log_i = ii.clamp(-10.0, 5.0)
@@ -235,7 +227,23 @@ def slstm_forward(params, x, cfg: SSMConfig, state=None):
         h = torch.sigmoid(oo) * c / n.abs().clamp_min(1.0)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    return c, n, m, h, torch.stack(hs, dim=1)
+
+
+def slstm_forward(params, x, cfg: SSMConfig, state=None):
+    """Sequential exponential-gated scalar LSTM with the max-stabilizer,
+    one step per position (the reference's ``lax.scan``, marked as one
+    loop for the graph importer).  x: (B, S, D); state: (c, n, m, h), each
+    (B, H, P), None for ``slstm_init_state``'s."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    P = D // H
+    wx = at_least_f32(x @ params["w_gates"]).reshape(B, S, H, 4 * P)
+    r = at_least_f32(params["r_gates"])
+    if state is None:
+        state = slstm_init_state((B, H, P), wx.dtype, x.device)
+    c, n, m, h, hs = scan(_slstm_loop, r, *state, wx)
+    y = hs.reshape(B, S, D).to(x.dtype)
     return y @ params["w_out"], (c, n, m, h)
 
 

@@ -149,5 +149,17 @@ def test_place_server_main_on_the_cpu(capsys):
     assert out[0].startswith("[0] llama_block on mixed_gen4: makespan=")
     assert "cache_hit=False" in out[0] and "cache_hit=True" in out[1]
     assert out[-1] == "server stats: {'hits': 1, 'misses': 1, 'cached': 1}"
-    with pytest.raises(NotImplementedError):
-        place_server.main(["--workload", "model:olmo_1b", "--device", "cpu"])
+    # the reference's default: model:olmo_1b at --seq 32, after a quick
+    # pretrain on the gemma_2b and phi4_mini_3p8b layers
+    place_server.main(["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[0] model:olmo_1b on mixed_gen4: makespan=")
+    assert "cache_hit=True" in out[1]
+
+
+def test_cli_trains_on_a_model_graph(capsys):
+    lines = _run(capsys, ["--graph", "model:olmo_1b", "--devices", "p100x4",
+                          "--stage1", "1", "--stage2", "1", "--stage2-batch",
+                          "2", "--stage3", "0"])
+    assert lines[0].startswith("model:olmo_1b on p100x4: CP=")
+    assert any(l.startswith("DOPPLER best: ") for l in lines)

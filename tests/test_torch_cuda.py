@@ -45,7 +45,8 @@ placements), a hierarchical ``place()`` and ``replace()`` on the kernel
 backends equal to the same trainer on the plain backends, one
 ``wc_trips`` launch an engine call, and the fused updates after a
 committed device loss bit-identical to a fresh trainer's on the new
-fleet.
+fleet; the importer's ``model:olmo_1b`` placed on the card, its
+makespans bit-equal to the CPU oracle's.
 """
 import dataclasses
 
@@ -311,6 +312,22 @@ def test_placement_request_on_the_card(cuda):
     assert (wc_ops.launches, wc_ops.trip_launches) == (w0, t0 + 1)
     assert pl.population.shape == (16, g.n) and np.isfinite(pl.makespans).all()
     assert pl.makespan == pl.makespans.min()
+
+
+def test_zoo_graph_placed_on_the_card_equals_the_cpu_oracle(cuda):
+    """``model:olmo_1b`` (the importer's layer graph) placed on the card:
+    2 pair launches and 1 ``wc_trips`` launch, every candidate's makespan
+    bit-equal to the CPU oracle's."""
+    g = workloads.get_workload("model:olmo_1b")
+    fm = get_device_model("v100x8")
+    tr = DopplerTrainer(g, fm, seed=0, device=cuda)
+    g0, t0 = gnn_ops.pair_launches, wc_ops.trip_launches
+    pl = tr.place(n_samples=16)
+    assert (gnn_ops.pair_launches - g0, wc_ops.trip_launches - t0) == (2, 1)
+    cands = np.concatenate([pl.greedy[None], pl.population])
+    ms, ok = makespan_fifo_batch(SimGraph.build(g, fm, "cpu"),
+                                 torch.as_tensor(cands), backend="torch")
+    assert ok.all() and np.array_equal(ms.numpy(), pl.makespans)
 
 
 # ------------------------------------------------------------- training

@@ -45,6 +45,8 @@ sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / "src")!r}]
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
+assert {{"repro_torch.graphs.fx_import",
+         "repro_torch.graphs.model_zoo"}} <= set(mods)   # the importer
 for name in mods:
     importlib.import_module(name)
 import chip_smoke

@@ -9,7 +9,8 @@ reference (``repro/core/training.py``'s functions around the trainer).
   shared params and AdamW moments held against the reference's step on
   the port's pre-update state.
 * the synthetic half of ``zoo_pretrain_tasks``: the same names, edges,
-  flops and bytes as the reference's.
+  flops and bytes as the reference's; its model half: the reference's
+  names, fleets and order.
 * ``transfer`` and the reference's behaviour tests of ``FleetTrainer``;
   ``fleet_exec_time`` bit-equal to the reference's; one ``train`` on
   injected draws equal to the reference's history, best time and
@@ -216,17 +217,34 @@ def test_zoo_pretrain_tasks_synthetic_half_matches_reference(n_synthetic,
 
 
 def test_zoo_pretrain_tasks_model_half_waits_for_the_importer():
-    """``archs`` empty means every architecture, as in the reference
-    (``archs or ARCH_IDS``); their ``model:`` graphs raise until the
-    importer is ported."""
-    with pytest.raises(NotImplementedError):
-        training.zoo_pretrain_tasks(archs=(), n_synthetic=0)
-    with pytest.raises(NotImplementedError):
-        training.zoo_pretrain_tasks(archs=("gemma_2b", "olmo_1b"),
-                                    holdout=("olmo_1b",))
+    """The importer has landed: ``archs`` empty means every architecture,
+    as in the reference (``archs or ARCH_IDS``), each its ``model:<arch>``
+    layer at ``seq``; ``holdout`` drops an architecture end to end."""
+    tasks = training.zoo_pretrain_tasks(archs=(), n_synthetic=0, seq=16)
+    assert [t.name.split("|")[0] for t in tasks] == list(ARCH_IDS)
+    assert [t.graph.name for t in tasks] == [f"model:{a}" for a in ARCH_IDS]
+    tasks = training.zoo_pretrain_tasks(archs=("gemma_2b", "olmo_1b"),
+                                        holdout=("olmo_1b",), seq=16)
+    assert [t.name.split("|")[0] for t in tasks][:1] == ["gemma_2b"]
     tasks = training.zoo_pretrain_tasks(archs=("olmo_1b",),
                                         holdout=("olmo_1b",), n_synthetic=2)
     assert sum(t.name.startswith("synth") for t in tasks) == 2
+
+
+@pytest.mark.parametrize("archs,holdout", [(None, ("gemma_2b",)),
+                                           (("olmo_1b", "zamba2_1p2b"), ())])
+def test_zoo_pretrain_tasks_model_half_matches_reference(archs, holdout):
+    """The reference's names, fleets and order; each graph the port's
+    import of the same layer (vertex count within the zoo parity's 15%)."""
+    got = training.zoo_pretrain_tasks(archs=archs, holdout=holdout, seq=16,
+                                      n_synthetic=2)
+    want = jax_training.zoo_pretrain_tasks(archs=archs, holdout=holdout,
+                                           seq=16, n_synthetic=2)
+    assert [t.name for t in got] == [t.name for t in want]
+    for p, j in zip(got, want):
+        assert p.dev.fingerprint() == j.dev.fingerprint()
+        assert p.graph.name == j.graph.name
+        assert p.graph.n == pytest.approx(j.graph.n, rel=0.15)
 
 
 # --------------------------------------------------------------- transfer
