@@ -345,7 +345,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    bit-equal to the plain trip loop; 17d runs ``place_server.main`` with
    its defaults, the first pair launch at each shape held against the
    plain version.
-18. prints the ``kernels`` JSON line and, last, the result line.
+18. the sizing dry-run (``launch/dryrun.py``), run right after item 17,
+   before item 13: 18a sizes six (arch x shape x mesh) cells at full
+   width and depth on a fake process group of 256 or 512 ranks, each
+   through the CLI in a process of its own, all started together before
+   item 17 at the lowest priority (olmo-1b train_4k, qwen1.5-110b train_4k, qwen3-moe train_4k on two
+   pods, granite-moe prefill_32k, gemma-2b decode_32k, zamba2-1.2B
+   long_500k): per-device argument and temp-peak GB, flops, bytes,
+   collective bytes by kind, the three roofline terms at the H100's
+   data-sheet peaks, the dominant one, the roofline fraction and the
+   trace seconds; a cell that ends past PATH18A_BUDGET_S is recorded.
+   18b sizes the one-card mesh at the shapes 15a, 16a and 16b ran (batch
+   4 x 2,048: zamba2 train, olmo-1b prefill and train) in another such
+   process (the prefill again in this one: fake tensors launch no
+   kernel, checked, and it sizes alike) and prints the predicted
+   argument bytes, peak and roofline bound beside the measured peak,
+   seconds and model-flops utilisation; the train steps' predicted
+   params + AdamW + batch bytes are held within 1% of what the card
+   allocates for them.
+19. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -354,6 +372,7 @@ import dataclasses
 import filecmp
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -369,7 +388,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.registry import (ARCH_IDS, ShapeCell,  # noqa: E402
+                                          get_config)
 from repro_torch.core.assign import build_graph_data, encode  # noqa: E402
 from repro_torch.core.calibrate import (calibrate_fleet,  # noqa: E402
                                         executor_measure)
@@ -422,6 +442,7 @@ from repro_torch.kernels.wc_oracle import ops as wc_ops  # noqa: E402
 from repro_torch.kernels.wc_oracle.ref import (wc_step_ref,  # noqa: E402
                                                wc_trips_ref)
 from repro_torch.launch import doppler_train  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import place_server  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
@@ -546,6 +567,29 @@ TRAIN16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "4", "--seq", "2048",
 RESUME16_ARGV = ["--arch", TRAIN16_ARCH, "--batch", "1", "--seq", "512",
                  "--steps", "4", "--ckpt-every", "2", "--log-every", "1"]
 INT8_BATCH, INT8_SEQ = 1, 512
+# path 18: the sizing dry-run (launch/dryrun.py) on the card's host.
+# 18a: six (arch x shape x mesh) cells at full width and depth on the
+# fake process group, each in a process of its own (the CLI), started
+# together before path 17 at the lowest priority, so the host's idle
+# cores run them beside it (PATH18A_BUDGET_S for the six from their
+# start: a cell past it is recorded, to drop from the end of the list);
+# 18b: the one-card mesh at the shapes
+# paths 15a, 16a and 16b measure (batch 4 x 2,048), its predictions
+# printed beside their measurements, the argument bytes (params + AdamW
+# + batch) of the train steps held within ARGS18_TOL of what the card
+# allocates for them
+PATH18A_CELLS = (("olmo_1b", "train_4k", "pod"),
+                 ("qwen1p5_110b", "train_4k", "pod"),
+                 ("qwen3_moe_235b_a22b", "train_4k", "multipod"),
+                 ("granite_moe_3b_a800m", "prefill_32k", "pod"),
+                 ("gemma_2b", "decode_32k", "pod"),
+                 ("zamba2_1p2b", "long_500k", "pod"))
+PATH18A_BUDGET_S = 60.0
+PATH18A_TIMEOUT_S = 240
+PATH18B = (("zamba2_1p2b", "train"), ("olmo_1b", "prefill"),
+           ("olmo_1b", "train"))
+PATH18B_BATCH, PATH18B_SEQ = 4, 2048
+ARGS18_TOL = 0.01
 # path 17: the model-zoo graph importer (graphs/model_zoo.py).  17a
 # imports every registry config's model:<arch> layer (DEFAULT_SEQ 256) on
 # the card's host, twice; 17b places ZOO17_PLACE's layers on ZOO17_FLEET
@@ -4973,6 +5017,232 @@ def path12(dev, by_name) -> None:
         for p, h in held.items()}
 
 
+# ------------------------------------------------------------- path 18
+# 18b's one-card sizing, in a process of its own: argv[1] the JSON list of
+# (arch, kind), argv[2] and argv[3] the batch and the sequence; prints the
+# results as one JSON line
+PATH18B_CODE = """
+import json, sys
+from repro_torch.configs.registry import ShapeCell
+from repro_torch.launch import dryrun
+B, S = int(sys.argv[2]), int(sys.argv[3])
+out = {}
+for arch, kind in json.loads(sys.argv[1]):
+    cell = ShapeCell(f"{kind}_{B}x{S}", S, B, kind)
+    out[f"{arch} {kind}"] = dryrun.size_cell(arch, cell, {"data": 1,
+                                                         "model": 1})
+print(json.dumps(out))
+"""
+
+
+def path18_start() -> dict:
+    """Start path 18's host work: 18a's cells, each through the dry-run's
+    CLI in a process of its own (the fake group is process-wide), and
+    18b's one-card sizing in another, all at once and at the lowest
+    priority, so that they run on the host's idle cores while the card
+    runs path 17; the end of each is timed.  Processes still running
+    when the script exits are killed."""
+    import atexit
+    import threading
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    logs = Path(tempfile.mkdtemp(prefix="path18_"))
+    t0 = time.perf_counter()
+
+    def launch(name, argv):
+        rec = {"out": logs / f"{name}.out", "err": logs / f"{name}.err",
+               "end": None}
+        with open(rec["out"], "w") as out, open(rec["err"], "w") as err:
+            rec["proc"] = subprocess.Popen(
+                [sys.executable, *argv], cwd=str(ROOT), env=env, stdout=out,
+                stderr=err, preexec_fn=lambda: os.nice(19))
+
+        def wait():
+            rec["proc"].wait()
+            rec["end"] = time.perf_counter()
+        threading.Thread(target=wait, daemon=True).start()
+        return rec
+
+    cells = [launch(f"{a}__{sh}__{m}",
+                    ["-m", "repro_torch.launch.dryrun", "--arch", a,
+                     "--shape", sh, "--mesh", m, "--force"])
+             for a, sh, m in PATH18A_CELLS]
+    sizing = launch("18b", ["-c", PATH18B_CODE, json.dumps(PATH18B),
+                            str(PATH18B_BATCH), str(PATH18B_SEQ)])
+    procs = [r["proc"] for r in cells] + [sizing["proc"]]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"t0": t0, "cells": cells, "sizing": sizing, "logs": logs}
+
+
+def _finished(rec, t0: float) -> tuple:
+    """Wait for one of path 18's processes (to PATH18A_TIMEOUT_S after
+    the start) -> (return code, stdout, stderr, seconds from the start to
+    its end)."""
+    p = rec["proc"]
+    try:
+        p.wait(timeout=max(1.0, PATH18A_TIMEOUT_S
+                           - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    while rec["end"] is None:
+        time.sleep(0.01)
+    return (p.returncode, rec["out"].read_text(), rec["err"].read_text(),
+            rec["end"] - t0)
+
+
+def path18a_print(res: dict, wall_s: float) -> None:
+    rf, mem = res["roofline"], res["memory_analysis"]
+    coll = {k: v for k, v in res["collective_breakdown"].items() if v}
+    print(f"path 18a {res['arch']} x {res['shape']} x {res['mesh']} "
+          f"({res['n_chips']} devices, fake group, at "
+          f"{dryrun.HW_H100['name']}, {dryrun.HW_H100['power_limit_w']:.2f} "
+          f"W peaks): per-device argument_gb="
+          f"{mem['argument_size_in_bytes'] / 1e9:.6f} temp_peak_gb="
+          f"{mem['temp_size_in_bytes'] / 1e9:.6f} fits_80gb="
+          f"{mem['fits_hbm']} flops={res['hlo_flops_per_device']:.6e} "
+          f"bytes={res['hlo_bytes_per_device']:.6e} collective_bytes="
+          f"{res['collective_bytes_per_device']:.6e} by kind "
+          f"{ {k: f'{v:.4e}' for k, v in coll.items()} } counts "
+          f"{ {k: v for k, v in res['collective_counts'].items() if v} } "
+          f"t_compute={rf['t_compute']:.6f} t_memory={rf['t_memory']:.6f} "
+          f"t_collective={rf['t_collective']:.6f} dominant={rf['dominant']} "
+          f"roofline_fraction={res['roofline_fraction']:.6f} "
+          f"dtensor_fallbacks={res['dtensor_fallbacks']} trace_s="
+          f"{res['trace_seconds']:.3f} process_wall_s={wall_s:.3f}")
+
+
+def path18b_args(dev, arch) -> float:
+    """Bytes the card allocates for ``arch``'s float32 params, their AdamW
+    moments and one batch of PATH18B_BATCH x PATH18B_SEQ ids (the
+    training paths' own: the data stream's batch)."""
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, 0, device=dev)
+    opt = adamw_init(params)
+    batch = SyntheticTokenStream(
+        cfg, DataConfig(PATH18B_SEQ, PATH18B_BATCH, seed=0),
+        device=dev).next_batch()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return float(held)
+
+
+def path18(dev, measured: dict, started: dict) -> dict:
+    """Path 18: the dry-run.  ``started``: ``path18_start``'s processes
+    (18a's six cells through the CLI, 18b's one-card sizing).  Here: one
+    18b cell sized again in this process (fake tensors on the host: no
+    kernel may launch, and the same result as the process's), the
+    processes' results, then 18b's argument-bytes gate on the card and
+    the predictions beside ``measured`` ({(arch, kind): (seconds a step
+    or a prefill, peak GB)} of paths 15a, 16a and 16b)."""
+    t0, t_start = time.perf_counter(), started["t0"]
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    _zero_lm_counts()
+    arch, kind = PATH18B[1]
+    here = dryrun.size_cell(arch, ShapeCell(
+        f"{kind}_{PATH18B_BATCH}x{PATH18B_SEQ}", PATH18B_SEQ, PATH18B_BATCH,
+        kind), {"data": 1, "model": 1})
+    launched = {**_launch_counts(), **_lm_counts()}
+    check(all(v == 0 for v in launched.values()),
+          f"the dry-run's fake traces launch no kernel: {launched}")
+    rc, out, err, wall_b = _finished(started["sizing"], t_start)
+    check(rc == 0, f"path 18b's sizing process ran (rc {rc}): {err[-1500:]}")
+    sized = {tuple(k.split()): v
+             for k, v in json.loads(out.strip().splitlines()[-1]).items()}
+    check(here["hlo_flops_per_device"]
+          == sized[(arch, kind)]["hlo_flops_per_device"]
+          and here["memory_analysis"] == sized[(arch, kind)][
+              "memory_analysis"],
+          f"path 18b {arch} {kind}: sized alike here and in its process")
+
+    cells, dropped = [], []
+    for (arch, shape, mesh), rec in zip(PATH18A_CELLS, started["cells"]):
+        rc, out, err, wall = _finished(rec, t_start)
+        check(rc == 0 and f"OK   {arch} {shape} {mesh}" in out,
+              f"path 18a {arch} x {shape} x {mesh}: the CLI ran the cell "
+              f"(rc {rc}): {err[-1500:]}")
+        res = json.loads((dryrun.RESULTS_DIR / f"{arch}__{shape}__{mesh}"
+                          f".json").read_text())
+        path18a_print(res, wall)
+        if wall > PATH18A_BUDGET_S:
+            dropped.append((arch, shape, mesh, round(wall, 3)))
+        rf = res["roofline"]
+        check(not res["skipped"] and res["hlo_flops_per_device"] > 0
+              and res["memory_analysis"]["argument_size_in_bytes"] > 0
+              and np.isfinite([rf["t_compute"], rf["t_memory"],
+                               rf["t_collective"]]).all()
+              and rf["dominant"] in ("compute", "memory", "collective")
+              and (res["n_chips"] == 512) == (mesh == "multipod"),
+              f"path 18a {arch} x {shape} x {mesh}: per-device bytes, "
+              f"flops and a dominant term")
+        cells.append(res)
+    t_a = time.perf_counter()
+    ends = [_finished(rec, t_start)[3] for rec in started["cells"]]
+    print(f"path 18a: {len(cells)} cells in {max(ends):.3f} s of wall from "
+          f"their start (all started together before path 17, at the "
+          f"lowest priority; 18b's sizing process {wall_b:.3f} s); past the "
+          f"{PATH18A_BUDGET_S:.0f} s budget (to drop from the end of the "
+          f"list next time): {dropped}")
+
+    rows = {}
+    for (arch, kind), res in sized.items():
+        s_meas, peak_meas = measured[(arch, kind)]
+        mem, rf = res["memory_analysis"], res["roofline"]
+        args = mem["argument_size_in_bytes"]
+        peak_pred = args + mem["temp_size_in_bytes"]
+        mfu = res["model_flops_global"] / (s_meas * BF16_FLOP_PER_S)
+        row = {"predicted_argument_gb": args / 1e9,
+               "predicted_peak_gb": peak_pred / 1e9,
+               "measured_peak_gb": peak_meas,
+               "peak_ratio": peak_pred / 1e9 / peak_meas,
+               "predicted_bound_s": rf["bound_s"], "dominant":
+               rf["dominant"], "measured_s": s_meas, "mfu": mfu,
+               "bound_share": rf["bound_s"] / s_meas,
+               "trace_s": res["trace_seconds"]}
+        if kind == "train":
+            held = path18b_args(dev, arch)
+            row["card_argument_gb"] = held / 1e9
+            row["argument_ratio"] = args / held
+        rows[(arch, kind)] = row
+        print(f"path 18b {arch} {kind} at batch {PATH18B_BATCH} x "
+              f"{PATH18B_SEQ} on the one-card mesh ({CARD}): predicted "
+              f"argument_gb={row['predicted_argument_gb']:.6f} (f32 "
+              f"params" + (" + AdamW + batch" if kind == "train" else
+                           " + bf16 KV cache + batch; the server holds "
+                           "bf16 matrices") + ")"
+              + (f" card_argument_gb={row['card_argument_gb']:.6f} "
+                 f"ratio={row['argument_ratio']:.6f}"
+                 if kind == "train" else "")
+              + f" predicted_peak_gb={row['predicted_peak_gb']:.6f} "
+              f"measured_peak_gb={peak_meas:.6f} peak_ratio="
+              f"{row['peak_ratio']:.6f} predicted_bound_s="
+              f"{rf['bound_s']:.6f} ({rf['dominant']}; t_compute "
+              f"{rf['t_compute']:.6f}, t_memory {rf['t_memory']:.6f}) "
+              f"measured_s={s_meas:.6f} bound/measured="
+              f"{row['bound_share']:.6f} model_flops="
+              f"{res['model_flops_global']:.6e} mfu={mfu:.6f} trace_s="
+              f"{res['trace_seconds']:.3f}")
+        if kind == "train":
+            check(abs(row["argument_ratio"] - 1.0) <= ARGS18_TOL,
+                  f"path 18b {arch}: predicted argument bytes {args} within "
+                  f"{ARGS18_TOL} of the card's {held}")
+        check(np.isfinite([row["predicted_peak_gb"], rf["bound_s"], mfu]
+                          ).all() and rf["bound_s"] > 0,
+              f"path 18b {arch} {kind}: finite predictions")
+    t1 = time.perf_counter()
+    print(f"path 18 wall s: {t1 - t0:.3f} after path 17 (waiting for its "
+          f"processes {t_a - t0:.3f}, 18b's gates {t1 - t_a:.3f})")
+    shutil.rmtree(started["logs"], ignore_errors=True)
+    return {"18a": cells, "18a_dropped": dropped, "18b": rows,
+            "wall_s": t1 - t0, "processes_s": max(ends + [wall_b])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5070,6 +5340,8 @@ def main() -> int:
         "zamba2_steps": a15["launches"]["mamba2_scan"],
         **{a: r["launches"]["mamba2_scan"] for a, r in b15.items()
            if r["launches"]["mamba2_scan"]}}
+    measured18 = {("zamba2_1p2b", "train"): (a15["s_per_step"],
+                                             a15["peak_memory_gb"])}
     del p15, a15, b15
 
     # path 16: serving olmo-1b, phi4-mini-3.8b and qwen1.5-110b (4 of 80
@@ -5091,13 +5363,27 @@ def main() -> int:
                          "tokens_per_s": b16["train"]["tokens_per_s"],
                          "resume_bit_equal": b16["resume"]["bit_equal"],
                          "int8": b16["int8"]}}
+    measured18[("olmo_1b", "prefill")] = (
+        a16["olmo_1b"]["serve"]["prefill_s"],
+        a16["olmo_1b"]["serve"]["peak_memory_gb"])
+    measured18[("olmo_1b", "train")] = (b16["train"]["s_per_step"],
+                                        b16["train"]["peak_memory_gb"])
     del p16, a16, b16
 
     # path 17: the model-zoo graph importer: every registry config's
     # layer graph imported on the host, two placed flat on the card (the
     # gnn_mp pair, wc_trips), model:olmo_1b:full placed through the
     # hierarchy, the placement server with its defaults
+    # path 18's host work (the dry-run on fake tensors) starts here, in
+    # processes of their own at the lowest priority, beside path 17
+    started18 = path18_start()
     path17(dev, by_name)
+
+    # path 18: the sizing dry-run: six production cells on the fake
+    # process group (host only), the one-card mesh's predictions beside
+    # what paths 15a, 16a and 16b measured, its argument bytes against
+    # the card's (flash_fwd_wgmma and mamba2_scan ran in those paths)
+    path18(dev, measured18, started18)
 
     # path 13: serving xlstm-1.3b (mamba2_scan at N 1024 a head in every
     # mLSTM block; the sLSTM blocks' loop over time in plain PyTorch).

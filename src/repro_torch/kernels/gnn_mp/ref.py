@@ -43,14 +43,19 @@ def build_csr(index: torch.Tensor, n: int) -> CSR:
 
 def segment_sum_ref(msg: torch.Tensor, dst: torch.Tensor, n: int,
                     csr: CSR | None = None) -> torch.Tensor:
-    """(n, d) with out[v] = sum of msg[e] over e with dst[e] == v."""
+    """(n, d) with out[v] = sum of msg[e] over e with dst[e] == v, added
+    one slot at a time from zero in edge-sorted order: the kernel's
+    order, so on the card the two are bit-equal (a reduction over the
+    slot axis associates the adds otherwise, and an ill-conditioned
+    gradient downstream can turn that last-bit gap into a large one)."""
     if csr is None:
         csr = build_csr(dst, n)
-    valid = csr.slots >= 0
-    gathered = msg[csr.slots.clamp(min=0)]                  # (n, L, d)
-    return torch.where(valid[..., None], gathered,
-                       torch.zeros((), dtype=msg.dtype,
-                                   device=msg.device)).sum(1)
+    out = torch.zeros((n, *msg.shape[1:]), dtype=msg.dtype, device=msg.device)
+    zero = torch.zeros((), dtype=msg.dtype, device=msg.device)
+    for slot in csr.slots.T:
+        valid = (slot >= 0).view(-1, *([1] * (msg.dim() - 1)))
+        out = out + torch.where(valid, msg[slot.clamp(min=0)], zero)
+    return out
 
 
 def segment_sum_pair_ref(msg_in: torch.Tensor, dst: torch.Tensor,

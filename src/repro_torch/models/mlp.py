@@ -14,8 +14,9 @@ contributions one at a time in ascending expert order, in the compute
 dtype, which is the order of the reference's scatter-add; it uses no
 atomic adds, so its bits do not vary run to run on CUDA.
 
-The reference's ``shard_map`` dispatch needs a device mesh; on one
-device it never runs, and the port does not have it (ROADMAP A12).
+On a device mesh (``parallel/annotate.py``) the dispatch buffer takes the
+reference's ``constrain_first`` annotations.  The reference's
+``shard_map`` dispatch is not ported (ROADMAP A12.5).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.nn import at_least_f32, tracing
+from ..parallel.annotate import constrain_first
 from .common import dense_init, gated_act, gelu
 from .config import MoEConfig
 
@@ -152,11 +154,18 @@ def moe_experts(params: dict, xf: torch.Tensor, route: Route,
     E, K = cfg.n_experts, cfg.top_k
     cap = moe_capacity(T, cfg)
     plan = moe_slots(route.experts, E, cap)
-    buf = torch.cat([xf, xf.new_zeros(1, D)])[plan.source].view(E, cap, D)
+    # expert-parallel dispatch on a mesh: the buffer's experts over
+    # 'model' when E divides it, else (the 'token_parallel' fallback) its
+    # capacity; no-ops without a mesh
+    dims = (0, 1) if cfg.fallback == "token_parallel" else (0,)
+    buf = constrain_first(
+        torch.cat([xf, xf.new_zeros(1, D)])[plan.source].view(E, cap, D),
+        "model", dims)
     h = gated_act(act if act in ("swiglu", "geglu") else "swiglu",
                   torch.bmm(buf, params["w_gate"]),
                   torch.bmm(buf, params["w_up"]))
-    out = torch.bmm(h, params["w_down"]).view(E * cap, D)
+    out = constrain_first(torch.bmm(h, params["w_down"]), "model",
+                          dims).reshape(E * cap, D)
 
     contrib = _weigh_kept(plan.keep, route.gate.reshape(-1)[plan.order],
                           out[plan.slot])

@@ -22,6 +22,7 @@ with a single projection block.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from ..core.nn import at_least_f32, scan
 from ..kernels.mamba2_scan import ops as ssd_ops
 from ..kernels.mamba2_scan.ref import _chunk_gla, chunked_gla  # noqa: F401
+from ..parallel.annotate import BATCH, constrain, get_mesh
 from .common import _normal, dense_init
 from .config import SSMConfig
 
@@ -73,11 +75,13 @@ def _split_proj(proj, di: int, N: int, H: int):
 
 
 def mamba2_forward(params, x, cfg: SSMConfig, state=None,
-                   backend: str = "cuda"):
+                   backend: str = "cuda", local_gla: bool = False):
     """x: (B, S, D) -> (B, S, D) and the final SSD state (B, H, P, N).
     ``state``: the carried SSD state, or None for zeros.  The scan runs
     the ``mamba2_scan`` kernel on the card (``backend="cuda"``); q and k
-    are one (B, S, N) tensor each, broadcast over the heads as views."""
+    are one (B, S, N) tensor each, broadcast over the heads as views.
+    ``local_gla``: constrain the scan's inputs to batch x head sharding on
+    a mesh (the reference's option; no-op without one)."""
     B, S, D = x.shape
     di = cfg.expand * D
     H, N = cfg.n_heads, cfg.state_dim
@@ -90,6 +94,12 @@ def mamba2_forward(params, x, cfg: SSMConfig, state=None,
     u = xh * dt[..., None]
     kq = at_least_f32(Bs)[:, :, None, :].expand(B, S, H, N)
     qq = at_least_f32(Cs)[:, :, None, :].expand(B, S, H, N)
+    if local_gla:
+        spec = (BATCH, None, "model", None)
+        u = constrain(u, *spec)
+        kq = constrain(kq, *spec)
+        qq = constrain(qq, *spec)
+        log_a = constrain(log_a, BATCH, None, "model")
     y, st = ssd_ops.ssd_scan(qq, kq, u, log_a, cfg.chunk, state,
                              backend=backend)
     y = y + params["D_skip"][None, None, :, None] * xh
@@ -134,7 +144,8 @@ def init_mlstm(gen: torch.Generator, d_model: int, cfg: SSMConfig,
 
 
 def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
-                state, step: bool, backend: str = "cuda"):
+                state, step: bool, backend: str = "cuda",
+                local_gla: bool = False):
     """q, k (k / sqrt(P)) and v per head in fp32, the input gate
     exp(clip(., -10, 5)) and the log forget gate logsigmoid(.); v is
     extended by a channel of the input gate that carries the normalizer
@@ -147,13 +158,24 @@ def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
         / math.sqrt(P)
     v = at_least_f32((xin @ params["w_v"]).reshape(B, S, H, P))
     gates = at_least_f32(xin @ params["w_if"]).reshape(B, S, 2 * H)
+    if local_gla:
+        spec = (BATCH, None, "model", None)
+        q = constrain(q, *spec)
+        k = constrain(k, *spec)
+        v = constrain(v, *spec)
+        gates = constrain(gates, BATCH, None, None)
     i_g = torch.exp(gates[..., :H].clamp(-10.0, 5.0))        # (B, S, H)
     log_f = F.logsigmoid(gates[..., H:])                     # <= 0
-    # v·i and i written into one buffer at the kernel's row pitch (copies
-    # into a fresh buffer, which autograd follows)
-    v_aug = ssd_ops.pitched(B, S, H, P + 1, v.dtype, v.device)
-    v_aug[..., :P] = v * i_g[..., None]
-    v_aug[..., P] = i_g
+    if get_mesh() is None:
+        # v·i and i written into one buffer at the kernel's row pitch
+        # (copies into a fresh buffer, which autograd follows)
+        v_aug = ssd_ops.pitched(B, S, H, P + 1, v.dtype, v.device)
+        v_aug[..., :P] = v * i_g[..., None]
+        v_aug[..., P] = i_g
+    else:
+        # on a device mesh the same values as one (DTensor) operator: the
+        # pitched buffer is a plain tensor
+        v_aug = torch.cat([v * i_g[..., None], i_g[..., None]], dim=-1)
     if step:
         y_aug, state = gla_step(q[:, 0], k[:, 0], v_aug[:, 0], log_f[:, 0],
                                 state)
@@ -167,14 +189,14 @@ def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
 
 
 def mlstm_forward(params, x, cfg: SSMConfig, state=None,
-                  backend: str = "cuda"):
+                  backend: str = "cuda", local_gla: bool = False):
     """x: (B, S, D) -> (B, S, D) and the final state (B, H, P + 1, P),
     P = expand * D / H; ``state`` None starts from zeros."""
     B, S, D = x.shape
     di = cfg.expand * D
     xin, z = (x @ params["w_in"]).chunk(2, dim=-1)
     y, state = _mlstm_core(params, xin, cfg, B, S, di, state, step=False,
-                           backend=backend)
+                           backend=backend, local_gla=local_gla)
     y = y.to(x.dtype) * F.silu(z)
     return y @ params["w_out"], state
 
@@ -209,9 +231,10 @@ def slstm_init_state(shape, dtype=torch.float32, device=None) -> tuple:
     return (z, z, z - 1e30, z)
 
 
-def _slstm_loop(r, c, n, m, h, wx):
+def _slstm_loop(r, c, n, m, h, wx, local_gla: bool = False):
     """The recurrence over time: r (H, P, 4P); (c, n, m, h) (B, H, P);
-    wx (B, S, H, 4P) -> (c, n, m, h, hs (B, S, H, P))."""
+    wx (B, S, H, 4P) -> (c, n, m, h, hs (B, S, H, P)).  ``local_gla``
+    pins the carry batch-local on a mesh each step."""
     P = r.shape[1]
     hs = []
     for t in range(wx.shape[1]):
@@ -226,11 +249,15 @@ def _slstm_loop(r, c, n, m, h, wx):
         n = f_p * n + i_p
         h = torch.sigmoid(oo) * c / n.abs().clamp_min(1.0)
         m = m_new
+        if local_gla:
+            c, n, m, h = (constrain(t_, BATCH, None, None)
+                          for t_ in (c, n, m, h))
         hs.append(h)
     return c, n, m, h, torch.stack(hs, dim=1)
 
 
-def slstm_forward(params, x, cfg: SSMConfig, state=None):
+def slstm_forward(params, x, cfg: SSMConfig, state=None,
+                  local_gla: bool = False):
     """Sequential exponential-gated scalar LSTM with the max-stabilizer,
     one step per position (the reference's ``lax.scan``, marked as one
     loop for the graph importer).  x: (B, S, D); state: (c, n, m, h), each
@@ -242,7 +269,14 @@ def slstm_forward(params, x, cfg: SSMConfig, state=None):
     r = at_least_f32(params["r_gates"])
     if state is None:
         state = slstm_init_state((B, H, P), wx.dtype, x.device)
-    c, n, m, h, hs = scan(_slstm_loop, r, *state, wx)
+    loop = _slstm_loop
+    if local_gla:
+        # gather the gate pre-activations once, before the time loop, and
+        # pin the recurrent carry batch-local (the reference's option)
+        wx = constrain(wx, BATCH, None, "model", None)
+        state = tuple(constrain(s, BATCH, None, None) for s in state)
+        loop = functools.partial(_slstm_loop, local_gla=True)
+    c, n, m, h, hs = scan(loop, r, *state, wx)
     y = hs.reshape(B, S, D).to(x.dtype)
     return y @ params["w_out"], (c, n, m, h)
 

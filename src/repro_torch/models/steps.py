@@ -1,5 +1,5 @@
 """Step functions (twin of ``repro/models/steps.py``): train, eval, prefill
-and decode.
+and decode, and the input specs of a shape cell.
 
 The reference jits these; PyTorch runs them eagerly.  ``batch`` is the
 model's input dict (``model_apply``): tokens, or the audio stub's frames,
@@ -16,10 +16,64 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.nn import value_and_grad
+from ..core.nn import tree_map, value_and_grad
 from ..train.optim import adamw_update, clip_by_global_norm
 from .config import ModelConfig
-from .transformer import lm_loss, model_apply
+from .transformer import init_decode_state, init_params, lm_loss, model_apply
+
+
+# ------------------------------------------------------------ input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, seq_len: int, global_batch: int,
+                kind: str) -> dict:
+    """Stand-ins (``meta`` tensors: shape and dtype, no memory) for every
+    model input of a shape cell, the reference's shapes and dtypes (int32
+    ids, bf16 stub embeddings)."""
+    B = global_batch
+    i32, bf16 = torch.int32, torch.bfloat16
+    if kind == "decode":
+        if cfg.frontend == "audio_stub":
+            return {"frames": _meta((B, 1, cfg.d_model), bf16)}
+        return {"tokens": _meta((B, 1), i32)}
+    batch = {}
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = _meta((B, seq_len, cfg.d_model), bf16)
+        batch["labels"] = _meta((B, seq_len), i32)
+    elif cfg.frontend == "vision_stub":
+        text_len = seq_len - cfg.n_patches
+        batch["patches"] = _meta((B, cfg.n_patches, cfg.d_model), bf16)
+        batch["tokens"] = _meta((B, text_len), i32)
+        batch["labels"] = _meta((B, text_len), i32)
+    else:
+        batch["tokens"] = _meta((B, seq_len), i32)
+        batch["labels"] = _meta((B, seq_len), i32)
+    if kind == "prefill":
+        batch.pop("labels", None)
+    return batch
+
+
+def _structs(make):
+    """``make()``'s tensors as ``meta`` tensors, run on fake tensors (the
+    counterpart of ``jax.eval_shape``: nothing is allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = make()
+    return tree_map(lambda t: _meta(tuple(t.shape), t.dtype), tree)
+
+
+def param_structs(cfg: ModelConfig):
+    """``init_params(cfg)``'s tree as ``meta`` tensors."""
+    return _structs(lambda: init_params(cfg, 0, device="cpu"))
+
+
+def decode_state_structs(cfg: ModelConfig, batch: int, cache_len: int):
+    """``init_decode_state(cfg, batch, cache_len)``'s tree as ``meta``
+    tensors."""
+    return _structs(lambda: init_decode_state(cfg, batch, cache_len,
+                                              device="cpu"))
 
 
 def make_train_step(cfg: ModelConfig, lr_schedule: Callable | float = 3e-4,

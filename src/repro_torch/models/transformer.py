@@ -10,8 +10,10 @@ position i stacked over the ``reps`` repetitions (axis 0),
 ``params["rem"]`` the remainder blocks, and ``attn_shared`` positions hold
 ``None`` because their weights live once, in ``params["shared_attn"]``
 (zamba2), with one KV cache per occurrence.  The reference's
-``lax.scan`` over repetitions is a Python loop here, and its sharding
-annotations have no counterpart on one device.
+``lax.scan`` over repetitions is a Python loop here.  Its sharding
+annotations are the same calls at the same sites
+(``parallel/annotate.py``): on a device mesh they redistribute DTensor
+activations, without one they return their argument unchanged.
 
 Inputs (``_frontend_embed``): token ids; for the audio stub (musicgen)
 precomputed frame embeddings instead; for the vision stub (paligemma)
@@ -57,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve_device
 from ..core.nn import tree_map
 from ..kernels.flash_attention import ops as fa_ops
+from ..parallel.annotate import BATCH, constrain, constrain_batch
 from .attention import decode_attention
 from .common import (IGNORE_ID, apply_norm, apply_rope, cast_block_params,
                      cross_entropy_loss, dense_init, dtype_of, embed_init,
@@ -220,7 +223,8 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
         y = h @ p[w]
         if cfg.qkv_bias:
             y = y + p[b].to(h.dtype)
-        return y.reshape(B, S, heads, cfg.head_dim)
+        return constrain(y.reshape(B, S, heads, cfg.head_dim),
+                         BATCH, None, "model", None)
 
     q = apply_rope(proj("wq", "bq", cfg.n_heads), positions, cfg.rope_theta)
     k = apply_rope(proj("wk", "bk", cfg.n_kv_heads), positions,
@@ -245,38 +249,41 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, mode, cache,
             kc, vc = cache
             kc[:, :S] = k
             vc[:, :S] = v
-    x = x + attn.reshape(B, S, cfg.q_dim) @ p["wo"]
+    x = constrain_batch(x + attn.reshape(B, S, cfg.q_dim) @ p["wo"])
     if cfg.moe is None and cfg.d_ff <= 0:
         return x, cache, None
     h2 = apply_norm(cfg.norm, x, p.get("ln2"))
     if cfg.moe is not None:
         ff, aux = moe_ffn(p["moe"], h2, cfg.moe, cfg.act)
-        return x + ff, cache, aux
-    return x + dense_ffn(p["ffn"], h2, cfg.act), cache, None
+        return constrain_batch(x + ff), cache, aux
+    return constrain_batch(x + dense_ffn(p["ffn"], h2, cfg.act)), cache, None
 
 
 def _ssm_block_apply(kind, p, cfg: ModelConfig, x, mode, state, backend):
     h = apply_norm(cfg.norm, x, p.get("ln1"))
+    local = cfg.ssm_local_gla
     if kind == "mlstm":
         if mode == "decode":
             y, st = mlstm_step(p["core"], h, cfg.ssm, state)
         else:
             y, st = mlstm_forward(p["core"], h, cfg.ssm, state,
-                                  backend=backend)
-        return x + y, st
+                                  backend=backend, local_gla=local)
+        return constrain_batch(x + y), st
     if kind == "slstm":
         if mode == "decode":
             y, st = slstm_step(p["core"], h, cfg.ssm, state)
         else:
-            y, st = slstm_forward(p["core"], h, cfg.ssm, state)
-        return x + y, st
+            y, st = slstm_forward(p["core"], h, cfg.ssm, state,
+                                  local_gla=local)
+        return constrain_batch(x + y), st
     if mode == "decode":
         ssd, tail = state
         y, ssd, tail = mamba2_step(p["core"], h, cfg.ssm, ssd, tail)
         return x + y, (ssd, tail)
     y, ssd = mamba2_forward(p["core"], h, cfg.ssm,
                             state[0] if state is not None else None,
-                            backend=backend)
+                            backend=backend, local_gla=local)
+    y = constrain_batch(y)
     tail = state[1] if state is not None else None
     if mode == "prefill":
         di = cfg.ssm.expand * cfg.d_model
@@ -366,7 +373,7 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
         raise ValueError(f"unknown mode {mode!r}")
     unit, reps, rem = unit_and_reps(cfg)
     cdt = _compute_dtype(params, cfg)
-    x = _frontend_embed(params, cfg, batch, cdt)
+    x = constrain_batch(_frontend_embed(params, cfg, batch, cdt))
     B, S, _ = x.shape
     default = "cuda" if x.device.type == "cuda" else "torch"
     attn_backend = attn_backend or default
@@ -428,7 +435,7 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
             state["unit"][i] if kind in ATTN_KINDS     # written in place
             else _stack(new_unit[i]) for i, kind in enumerate(unit)]}
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
-    logits = _lm_head(params, cfg, x)
+    logits = constrain(_lm_head(params, cfg, x), BATCH, None, "model")
     return logits, new_state, aux_total
 
 

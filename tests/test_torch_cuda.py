@@ -10,7 +10,8 @@ Bars: ``wc_step`` bit-exact on run_out and e1 (rho where alive);
 placements of its state; the
 ``gnn_mp`` segment-sum within 1e-5 of the plain version relative to the
 output's largest magnitude (both sum in fp32, in different orders);
-``segment_sum_pair`` (both directions in one launch) likewise;
+``segment_sum_pair`` (both directions in one launch) likewise; both
+bit-equal to the plain version, which adds in their order (ROADMAP C5);
 the oracle's makespans with the kernel equal to the plain path's;
 one Stage I episode and one Stage II update of ``DopplerTrainer`` on the
 kernel backends against a twin on the plain backends (chip_smoke.py's
@@ -150,6 +151,37 @@ def test_gnn_mp_pair_kernel_matches_plain(cuda, m, n, d):
         scale = max(float(ref.abs().max()), 1.0)
         assert float((got - ref).abs().max()) / scale <= 1e-5
         assert not got[c.row_ptr[1:] == c.row_ptr[:-1]].any()
+
+
+@pytest.mark.parametrize("m,n,d", [(364, 252, 64), (1000, 53, 16),
+                                   (3000, 50, 8), (2**20, 2**17, 64)])
+def test_gnn_mp_kernels_are_bit_equal_to_plain(cuda, m, n, d):
+    """The plain sum adds in the kernels' order (edge-sorted, from zero),
+    so both kernels equal it bit for bit, at any degree (ROADMAP C5: a
+    Stage III gradient amplified their last-bit gap to 5.6e-5 of its
+    max), and the llama_layer encoder on the kernel equals the plain
+    backend's."""
+    from repro_torch.core.assign import encode
+    from repro_torch.graphs.workloads import get_workload
+    g = torch.Generator(cuda).manual_seed(m + d + 1)
+    msg_in, msg_out = (torch.randn(m, d, generator=g, device=cuda)
+                       for _ in range(2))
+    src, dst = (torch.randint(0, n, (m,), generator=g, device=cuda)
+                for _ in range(2))
+    csr = (build_csr(dst, n), build_csr(src, n))
+    pair = gnn_ops.segment_sum_pair(msg_in, dst, msg_out, src, n, csr=csr)
+    one = gnn_ops.segment_sum(msg_in, dst, n, backend="cuda", csr=csr[0])
+    for got, msg, idx, c in ((pair[0], msg_in, dst, csr[0]),
+                             (pair[1], msg_out, src, csr[1]),
+                             (one, msg_in, dst, csr[0])):
+        assert torch.equal(got, segment_sum_ref(msg, idx, n, c))
+    tr = DopplerTrainer(get_workload("llama_layer"),
+                        get_device_model("v100x8"), seed=0, device=cuda)
+    kern = encode(tr.params, tr.gd, "cuda")
+    plain = encode(tr.params, tr.gd, "torch")
+    for a, b in zip(kern if isinstance(kern, tuple) else (kern,),
+                    plain if isinstance(plain, tuple) else (plain,)):
+        assert torch.equal(a, b)
 
 
 def test_gnn_mp_pair_kernel_grad_and_empty(cuda):
@@ -1368,3 +1400,32 @@ def test_reduced_driver_resume_is_bit_equal_on_the_card(cuda, tmp_path):
     last = "step_000000005/arrays.msgpack"
     assert (tmp_path / "a" / last).read_bytes() == \
         (tmp_path / "b" / last).read_bytes()
+
+
+def test_dryrun_argument_bytes_match_the_card(cuda):
+    """The dry-run's one-card argument bytes (``launch/dryrun.py``: f32
+    params, their AdamW moments and an int32 batch, from the specs) for
+    reduced olmo-1b against what the card allocates for the params, the
+    moments and the batch; within 1% (chip_smoke.py's path 18b gate)."""
+    from repro_torch.configs.registry import ShapeCell, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.train.optim import adamw_init
+    cfg = get_config("olmo_1b").reduced()
+    cell = ShapeCell("t", 64, 4, "train")
+    pred = dryrun.argument_bytes(cfg, cell, {"data": 1, "model": 1})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = transformer.init_params(cfg, 0, device=cuda)
+    opt = adamw_init(params)
+    batch = {k: torch.zeros(4, 64, dtype=torch.int32, device=cuda)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert len(tree_leaves(opt.mu)) == len(tree_leaves(params))
+    assert batch["tokens"].is_cuda
+    # the caching allocator rounds each block up to 512 bytes, which at
+    # the reduced widths is more than 1%: held exactly, up to that
+    n_blocks = 3 * len(tree_leaves(params)) + 2
+    assert pred["total"] <= held <= pred["total"] + 512 * n_blocks
