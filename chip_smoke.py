@@ -363,7 +363,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    seconds and model-flops utilisation; the train steps' predicted
    params + AdamW + batch bytes are held within 1% of what the card
    allocates for them.
-19. prints the ``kernels`` JSON line and, last, the result line.
+19. the data-parallel fused Stage II and remat "dots", run last: 19a
+   starts a one-rank NCCL process and two gloo ranks (processes of
+   their own on the one card: NCCL takes one rank a GPU) on
+   ``llama_layer`` x ``v100x8`` at K 16 and the policy's published
+   width: the ranks run 4 eager data-parallel updates on numpy draw
+   tables, each timed, the all-reduce's share read from its wrapped
+   wall time, 4 ``gnn_mp`` pair launches and 1 ``wc_trips`` a rank an
+   update; every rank's result bit-equal; the single-device engine from
+   each update's state on the same tables gives the same actions and
+   makespans (update 0 also on the plain backends); each update's loss
+   and reduced gradient against the forced replay of its actions on its
+   advantages (path 5's bars) and its AdamW step within lr / 100.  The
+   NCCL process captures the engine over its one-rank group (the
+   collectives inside the CUDA graph), bit-equal to the captured
+   single-device engine, both timed.  19b, beside 19a's set-up: olmo-1b
+   at full width and depth, batch 4 x 2,048: step 0's gradients under
+   remat "dots" on the kernels against the plain backends at 15a's bar,
+   against "full" within 1e-5 (loss) and that bar; then 2 steps under
+   "dots" and 1 under "full" from the same state (``flash_fwd_wgmma`` 32
+   a step under both), seconds and peak GB each.
+   Path 18a's olmo-1b train_4k x pod cell is held to the CPU's sizing:
+   temp within 1%, memory-bound, no operator run replicated.
+20. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -585,6 +607,12 @@ PATH18A_CELLS = (("olmo_1b", "train_4k", "pod"),
                  ("gemma_2b", "decode_32k", "pod"),
                  ("zamba2_1p2b", "long_500k", "pod"))
 PATH18A_BUDGET_S = 60.0
+# a cell's temp GB a device and dominant term as the CPU sizes it
+# (``python -m repro_torch.launch.dryrun --arch olmo_1b --shape train_4k
+# --mesh pod``, torch 2.13): the card (another torch) must read the same,
+# within PATH18A_CPU_TOL, with no operator run replicated
+PATH18A_CPU = {("olmo_1b", "train_4k", "pod"): (9.232859, "memory")}
+PATH18A_CPU_TOL = 0.01
 PATH18A_TIMEOUT_S = 240
 PATH18B = (("zamba2_1p2b", "train"), ("olmo_1b", "prefill"),
            ("olmo_1b", "train"))
@@ -2334,11 +2362,12 @@ def _lm_counts() -> dict:
 def step_launches(cfg) -> dict:
     """The kernel launches one train step of ``cfg`` makes: one a block's
     forward, twice for the unit's blocks under remat (the recompute in
-    the backward pass; the remainder runs once, as the reference's
-    ``jax.checkpoint`` wraps only its scan body); the plain backward
-    launches none."""
+    the backward pass, under "full" and "dots" alike: "dots" keeps only
+    the products without a batch dim; the remainder runs once, as the
+    reference's ``jax.checkpoint`` wraps only its scan body); the plain
+    backward launches none."""
     unit, reps, rem = lm.unit_and_reps(cfg)
-    k = 2 if cfg.remat and cfg.remat_policy == "full" else 1
+    k = 2 if cfg.remat and cfg.remat_policy in ("full", "dots") else 1
     n = lambda kinds: (k * reps * sum(x in kinds for x in unit)
                        + sum(x in kinds for x in rem))
     attn = n(lm.ATTN_KINDS)
@@ -5181,6 +5210,15 @@ def path18(dev, measured: dict, started: dict) -> dict:
               and (res["n_chips"] == 512) == (mesh == "multipod"),
               f"path 18a {arch} x {shape} x {mesh}: per-device bytes, "
               f"flops and a dominant term")
+        want = PATH18A_CPU.get((arch, shape, mesh))
+        if want is not None:
+            temp = res["memory_analysis"]["temp_size_in_bytes"] / 1e9
+            check(abs(temp / want[0] - 1) <= PATH18A_CPU_TOL
+                  and rf["dominant"] == want[1]
+                  and res["dtensor_fallbacks"] == {},
+                  f"path 18a {arch} x {shape} x {mesh}: temp {temp} GB, "
+                  f"{rf['dominant']}, fallbacks {res['dtensor_fallbacks']} "
+                  f"as the CPU sizes it: {want}")
         cells.append(res)
     t_a = time.perf_counter()
     ends = [_finished(rec, t_start)[3] for rec in started["cells"]]
@@ -5241,6 +5279,499 @@ def path18(dev, measured: dict, started: dict) -> dict:
     shutil.rmtree(started["logs"], ignore_errors=True)
     return {"18a": cells, "18a_dropped": dropped, "18b": rows,
             "wall_s": t1 - t0, "processes_s": max(ends + [wall_b])}
+
+
+# ------------------------------------------------------------- path 19
+# 19a: the data-parallel fused Stage II (core/train_fused.py, n_devices)
+# on TRAIN_REQUEST at K TRAIN_K: DP19_RANKS gloo ranks, one process each
+# on the one card, eager (NCCL takes one rank a GPU; gloo stages the
+# CUDA tensors through the host and its collectives cannot be captured),
+# DP19_UPDATES updates of one a dispatch on numpy draw tables (seed
+# DP19_SEED), against the single-device engine on the same tables; and a
+# one-rank NCCL group with capture, bit-equal to the captured
+# single-device engine.  The processes start before path 12 and wait for
+# path 19; from there they have DP19_TIMEOUT_S.
+DP19_RANKS, DP19_UPDATES, DP19_SEED, DP19_TIMEOUT_S = 2, 4, 19, 300
+# 19b: olmo-1b at full width and depth, batch 4 x 2,048, remat "dots"
+# (the reference's dots_with_no_batch_dims_saveable) for DOTS19_STEPS
+# steps and "full" for one, from the same state
+DOTS19_ARCH, DOTS19_STEPS, DOTS19_BATCH, DOTS19_SEQ = "olmo_1b", 2, 4, 2048
+
+
+def _dp19_setup(dev, world: int, backend: str, store: str):
+    """A rank's process group, TRAIN_REQUEST's graph and fleet, and the
+    draw tables every rank makes alike."""
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=int(os.environ["DP19_RANK"]),
+                            world_size=world)
+    gname, fleet = TRAIN_REQUEST
+    g, fm = get_workload(gname), get_device_model(fleet)
+    rng = np.random.default_rng(DP19_SEED)
+    draws = [_draw_tables(rng, g.n, TRAIN_K, fm.n)
+             for _ in range(DP19_UPDATES)]
+    return dist, g, fm, draws
+
+
+def _wait_for(path: Path, timeout: float) -> None:
+    t0 = time.perf_counter()
+    while not path.exists():
+        check(time.perf_counter() - t0 < timeout, f"waited for {path}")
+        time.sleep(0.05)
+
+
+def _timed_collectives(dist, dev, log: dict):
+    """Wrap ``dist.all_reduce`` / ``all_gather``: each call's wall time,
+    the card synced before and after, summed by name into ``log``."""
+    def wrap(name, fn):
+        def timed(*a, **k):
+            sync(dev)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            log[name] = log.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return timed
+    for name in ("all_reduce", "all_gather"):
+        setattr(dist, name, wrap(name, getattr(dist, name)))
+
+
+def _update_record(tr) -> dict:
+    lu = tr.last_update
+    return {"params": tree_map(torch.clone, tr.params),
+            "mu": tree_map(torch.clone, tr.opt_state.mu),
+            "nu": tree_map(torch.clone, tr.opt_state.nu),
+            "grads": tree_map(torch.clone, lu["grads"]),
+            "loss": lu["loss"], "actions": lu["actions"].cpu(),
+            "rewards": lu["rewards"], "advantages": lu["advantages"],
+            "episode": tr.episode,
+            "r_stats": (tr._r_sum, tr._r_sqsum, tr._r_count)}
+
+
+def path19a_rank(world: int, store: str, out: str,
+                 device: str = "cuda") -> None:
+    """One gloo rank of 19a (a process; ``DP19_RANK`` in its environment):
+    DP19_UPDATES eager data-parallel updates, each timed (the first warms
+    up; the rest wait for the NCCL process's captures, ``out``.captured,
+    and for the main process, ``out``.go, so that nothing else runs on
+    the card beside them), the collectives' wall time wrapped, launches
+    counted.  After the NCCL process's timed replays
+    (``out``.nccl_timed), the gates, split over the
+    ranks: every rank's result bit-equal to rank 0's; on rank 0 the
+    single-device engine from each update's state on the same tables
+    (actions and makespans bit-equal); on the last rank update 0 on the
+    plain backends (the same actions and makespans: ``wc_trips`` and
+    the ``gnn_mp`` pair held against their plain versions); on rank
+    ``u % world`` update u's loss and reduced gradient against the forced
+    replay of its actions on its advantages (path 5's bars, the gradient
+    over the whole tree as the CPU tests hold it) and its AdamW step
+    within lr / 100.  Prints one JSON line.  ``device`` "cpu" rehearses
+    it (the plain versions stand in for the kernels)."""
+    import pickle
+    from repro_torch.train.optim import adamw_update
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    rank = int(os.environ["DP19_RANK"])
+    dist, g, fm, draws = _dp19_setup(dev, world, "gloo", store)
+    tr = DopplerTrainer(g, fm, seed=0, device=dev)
+    state0 = SimpleNamespace(params=tree_map(torch.clone, tr.params),
+                             opt_state=tr.opt_state, generator=tr.generator,
+                             episode=0, _r_sum=0.0, _r_sqsum=0.0, _r_count=0)
+    coll: dict = {}
+    _timed_collectives(dist, dev, coll)
+    dist.barrier()
+    recs, seconds, launches, ms = [], [], [], []
+    for u in range(DP19_UPDATES):
+        if u == 1:          # the main process comes to path 19 (minutes)
+            for flag in (".captured", ".go"):
+                _wait_for(Path(out + flag), 1200)
+            dist.barrier()
+            coll.clear()
+        before = {"params": tree_map(torch.clone, tr.params),
+                  "state": AdamState(tr.opt_state.step,
+                                     tree_map(torch.clone, tr.opt_state.mu),
+                                     tree_map(torch.clone, tr.opt_state.nu)),
+                  "episode": tr.episode}
+        c0 = _launch_counts()
+        t = time.perf_counter()
+        ms.append(tr.stage2_fused(1, batch_size=TRAIN_K,
+                                  updates_per_dispatch=1, n_devices=world,
+                                  draws=draws[u:u + 1], capture=False))
+        sync(dev)
+        seconds.append(time.perf_counter() - t)
+        launches.append({k: v - c0[k] for k, v in _launch_counts().items()})
+        recs.append({**_update_record(tr), "before": before})
+    dist.barrier()
+    if rank == 0:
+        Path(out + ".timed").touch()
+    _wait_for(Path(out + ".nccl_timed"), DP19_TIMEOUT_S)
+    t_gates = time.perf_counter()
+    mine = {"makespans": ms, "params": [tree_map(lambda x: x.cpu(),
+                                                 r["params"]) for r in recs],
+            "losses": [r["loss"] for r in recs]}
+    if rank:
+        with open(f"{out}.rank{rank}", "wb") as f:
+            pickle.dump(mine, f)
+    dist.barrier()
+    res = {"rank": rank, "seconds": seconds, "launches": launches,
+           "collective_s": coll, "makespans": ms}
+    if rank == 0:
+        for r in range(1, world):
+            with open(f"{out}.rank{r}", "rb") as f:
+                theirs = pickle.load(f)
+            check(theirs["makespans"] == ms and theirs["losses"]
+                  == mine["losses"] and all(
+                      torch.equal(a, b) for pa, pb in zip(
+                          theirs["params"], mine["params"])
+                      for a, b in zip(tree_leaves(pa), tree_leaves(pb))),
+                  f"19a: rank {r}'s makespans, losses and params bit-equal "
+                  f"to rank 0's")
+    twins = []
+    if rank == 0:         # the single-device engine from each update's state
+        one = DopplerTrainer(g, fm, seed=0, device=dev)
+        twins = [(u, one) for u in range(DP19_UPDATES)]
+    if rank == world - 1:        # update 0 on the plain backends
+        plain = DopplerTrainer(g, fm, seed=0, device=dev,
+                               encoder_backend="torch",
+                               oracle_backend="torch")
+        twins.insert(0, (0, plain))
+    single = []
+    for u, twin in twins:
+        rec, b = recs[u], recs[u]["before"]
+        _copy_state(SimpleNamespace(
+            params=b["params"], opt_state=b["state"],
+            generator=twin.generator, episode=b["episode"],
+            _r_sum=recs[u - 1]["r_stats"][0] if u else 0.0,
+            _r_sqsum=recs[u - 1]["r_stats"][1] if u else 0.0,
+            _r_count=recs[u - 1]["r_stats"][2] if u else 0), twin)
+        got = twin.stage2_fused(1, batch_size=TRAIN_K, draws=draws[u:u + 1],
+                                capture=False)
+        lo = twin.last_update
+        check(got == ms[u] and np.array_equal(
+            rec["actions"].numpy(), lo["actions"].cpu().numpy()),
+              f"19a update {u}: actions and makespans bit-equal to the "
+              f"single-device engine's ({twin.encoder_backend} / "
+              f"{twin.oracle_backend} backends)")
+        single.append((u, twin.encoder_backend,
+                       abs(rec["loss"] - lo["loss"]) / abs(lo["loss"]),
+                       max(float((x - y).abs().max()) for x, y in zip(
+                           tree_leaves(rec["grads"]),
+                           tree_leaves(lo["grads"])))))
+    step_bars = []
+    for u in range(rank, DP19_UPDATES, world):
+        rec, b = recs[u], recs[u]["before"]
+        # the reduced gradient: the whole batch's loss on its advantages,
+        # by the forced replay (path 5's gate)
+        loss, grads = _pg_loss_and_grad_batch(
+            b["params"], tr.gd, rec["actions"].to(dev), rec["advantages"],
+            tr.entropy_weight, encoder_backend=tr.encoder_backend)
+        gate_update(f"19a update {u}: {world} gloo ranks vs the forced "
+                    f"replay on their advantages",
+                    SimpleNamespace(last_update={
+                        k: rec[k] for k in ("actions", "rewards", "loss",
+                                            "grads")}),
+                    SimpleNamespace(last_update={
+                        "actions": rec["actions"], "rewards": rec["rewards"],
+                        "loss": loss, "grads": grads}),
+                    loss_tol=REPLAY_LOSS_TOL, param_tol=None,
+                    tree_scale=True)
+        lr = float(tr.lr_sched(torch.tensor(b["episode"], dtype=torch.int32,
+                                            device=dev)))
+        want, _ = adamw_update(rec["grads"], b["state"], b["params"], lr)
+        err = max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(rec["params"]), tree_leaves(want)))
+        check(err <= lr / 100, f"19a update {u}: the AdamW step on the "
+                               f"reduced gradient {err} <= lr/100")
+        step_bars.append((u, err))
+    print(f"19a rank {rank}: against one device from the same state (update, "
+          f"encoder backend, loss relative, max gradient gap): {single} (the "
+          f"batch std is sqrt(E[r^2] - E[r]^2) over ranks, the population "
+          f"std on one device); gates {time.perf_counter() - t_gates:.3f} s")
+    res.update(single_device_gaps=single, adamw_step_err=step_bars)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(res))
+
+
+def path19a_nccl(store: str, out: str, device: str = "cuda",
+                 backend: str = "nccl") -> None:
+    """19a's one-rank NCCL group: DP19_UPDATES updates of the
+    data-parallel engine (``n_devices=1`` over the group) captured as
+    CUDA graphs, the collectives inside them (the communicator made in
+    the warm-up), against the captured single-device engine from the
+    same state on the same tables: makespans, losses, params, AdamW
+    moments and reward statistics bit-equal; then DP19_UPDATES more
+    replays of each on fresh draws, timed after the gloo ranks' timed
+    updates (``out``.timed); touches ``out``.captured after the captures.
+    Prints one JSON line.  ``device`` "cpu" and ``backend`` "gloo"
+    rehearse it (eagerly)."""
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    dist, g, fm, draws = _dp19_setup(dev, 1, backend, store)
+    try:
+        dp, one = (DopplerTrainer(g, fm, seed=0, device=dev)
+                   for _ in range(2))
+        c0 = _launch_counts()
+        got = dp.stage2_fused(DP19_UPDATES, batch_size=TRAIN_K,
+                              updates_per_dispatch=DP19_UPDATES,
+                              n_devices=1, draws=draws)
+        c1 = _launch_counts()
+        want = one.stage2_fused(DP19_UPDATES, batch_size=TRAIN_K,
+                                updates_per_dispatch=DP19_UPDATES,
+                                draws=draws)
+        eng = _engine(dp, "stage2")
+        check(eng.group is not None and eng.graphed.graph is not None,
+              "19a: the one-rank engine runs over the NCCL group, captured")
+        same = (got == want and dp.losses == one.losses
+                and (dp._r_sum, dp._r_sqsum, dp._r_count)
+                == (one._r_sum, one._r_sqsum, one._r_count)
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves((dp.params, dp.opt_state.mu,
+                                 dp.opt_state.nu)),
+                    tree_leaves((one.params, one.opt_state.mu,
+                                 one.opt_state.nu)))))
+        check(same, "19a: the captured one-rank NCCL update is bit-equal "
+                    "to the captured single-device update")
+        Path(out + ".captured").touch()
+        _wait_for(Path(out + ".timed"), 1200)    # after path 12 (minutes)
+        timed = {}
+        for name, tr, kw in (("nccl_1rank", dp, {"n_devices": 1}),
+                             ("single_device", one, {})):
+            tr.seconds.clear()
+            tr.stage2_fused(DP19_UPDATES, batch_size=TRAIN_K,
+                            updates_per_dispatch=DP19_UPDATES, **kw)
+            timed[name] = tr.seconds["updates"] / DP19_UPDATES
+        Path(out + ".nccl_timed").touch()
+        print(json.dumps({"captured": eng.graphed.captured,
+                          "launches_first_dispatch": {
+                              k: v - c0[k] for k, v in c1.items()},
+                          "s_per_update": timed, "bit_equal": same}))
+    finally:
+        for flag in (".captured", ".nccl_timed"):
+            Path(out + flag).touch()
+        dist.destroy_process_group()
+
+
+PATH19A_CODE = """
+import chip_smoke
+chip_smoke.CARD = {card!r}
+chip_smoke.{fn}
+"""
+
+
+def path19a_start() -> dict:
+    """Start 19a: the one-rank NCCL process and DP19_RANKS gloo ranks,
+    together (each imports the port and loads the kernels the main
+    process built).  Their set-up, captures and warm-up update run beside
+    what the main process does next; the ranks' timed updates wait for
+    ``out``.go,
+    which the main process touches after them, the NCCL process's timed
+    replays for the ranks', the ranks' gates for those.  Processes still
+    running when the script exits are killed."""
+    import atexit
+    tmp = Path(tempfile.mkdtemp(prefix="path19a_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+
+    def launch(rank, fn):
+        return subprocess.Popen(
+            [sys.executable, "-c", PATH19A_CODE.format(card=CARD, fn=fn)],
+            cwd=str(ROOT), env={**env, "DP19_RANK": str(rank)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = str(tmp / "dp")
+    procs = [launch(0, f"path19a_nccl({str(tmp / 'nccl')!r}, {out!r})")]
+    procs += [launch(r, f"path19a_rank({DP19_RANKS}, "
+                        f"{str(tmp / 'gloo')!r}, {out!r})")
+              for r in range(DP19_RANKS)]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"tmp": tmp, "out": out, "procs": procs}
+
+
+def path19a(started: dict) -> dict:
+    """19a's results: the processes' gates passed, their launches, times
+    and the NCCL process's bit-equality."""
+    t0, procs = time.perf_counter(), started["procs"]
+    Path(started["out"] + ".go").touch()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(
+                1.0, DP19_TIMEOUT_S - (time.perf_counter() - t0))))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    for name, p, (so, se) in zip(["nccl"] + [f"gloo rank {r}" for r in
+                                             range(DP19_RANKS)], procs, outs):
+        for line in so.strip().splitlines()[:-1]:
+            print(f"  19a {name}: {line}")
+        check(p.returncode == 0, f"19a's {name} process (rc {p.returncode}):"
+                                 f" {se[-2500:]}")
+    nccl, *ranks = (json.loads(o.strip().splitlines()[-1])
+                    for o, _ in outs)
+    per = {"gnn_mp_pair": 4, "gnn_mp": 0, "wc_oracle_trips": 1,
+           "wc_oracle": 0}
+    for r in ranks:
+        check(all(c == per for c in r["launches"]),
+              f"19a rank {r['rank']}: the gnn_mp pair 4x and wc_trips once "
+              f"an update: {r['launches']}")
+    check(nccl["captured"] == {"gnn_mp_pair": 4, "wc_oracle_trips": 1},
+          f"19a: a captured one-rank update records the pair 4x and "
+          f"wc_trips once: {nccl['captured']}")
+    r0 = ranks[0]
+    timed = r0["seconds"][1:]
+    s_upd = float(np.mean(timed))
+    coll = {k: v / (DP19_UPDATES - 1) for k, v in
+            r0["collective_s"].items()}
+    share = coll.get("all_reduce", 0.0) / s_upd
+    print(f"path 19a ({CARD}): data-parallel fused Stage II on "
+          f"{'x'.join(TRAIN_REQUEST)} at K {TRAIN_K}: {DP19_RANKS} gloo "
+          f"ranks eager, s_per_update(updates 1-{DP19_UPDATES - 1})="
+          f"{s_upd:.6f} (all {r0['seconds']}), all_reduce_s_per_update="
+          f"{coll.get('all_reduce', 0.0):.6f} (share {share:.6f}), "
+          f"all_gather_s_per_dispatch={coll.get('all_gather', 0.0):.6f}; "
+          f"launches per rank per update {per}; makespans bit-equal to "
+          f"the single-device engine over {DP19_UPDATES} updates, the "
+          f"AdamW step within lr/100 ({[r['adamw_step_err'] for r in ranks]}); one-rank "
+          f"NCCL captured: s_per_update {nccl['s_per_update']} (the "
+          f"collectives' share "
+          f"{1 - nccl['s_per_update']['single_device'] / nccl['s_per_update']['nccl_1rank']:.6f}), "
+          f"bit-equal {nccl['bit_equal']}, captured launches "
+          f"{nccl['captured']}; path wall s {time.perf_counter() - t0:.3f}")
+    return {"s_per_update_gloo2": s_upd, "seconds_gloo2": r0["seconds"],
+            "all_reduce_s": coll.get("all_reduce", 0.0),
+            "all_gather_s": coll.get("all_gather", 0.0),
+            "all_reduce_share": share, "launches_per_rank_update": per,
+            "nccl": nccl, "wall_s": time.perf_counter() - t0}
+
+
+def path19b_grads(dev) -> dict:
+    """19b's gates: olmo-1b at full width and depth (f32 params, bf16
+    compute), batch DOTS19_BATCH x DOTS19_SEQ.  Step 0's loss and
+    gradients under "dots" and under "full" on the kernels, and under
+    "dots" on the plain backends in bf16 and fp32: dots on the kernels
+    against plain within the plain path's own bf16-vs-fp32 gap (15a's
+    bar), dots against full within TRAIN_LOSS_TOL relative and that bar;
+    the peak GB of each kernel pass (forward and backward, no
+    optimizer)."""
+    t0 = time.perf_counter()
+    full = get_config(DOTS19_ARCH)
+    dots = dataclasses.replace(full, remat_policy="dots")
+    check((full.n_layers, full.d_model, full.remat, full.remat_policy)
+          == (16, 2048, True, "full"), "olmo-1b at full depth, remat on")
+    params = lm.init_params(full, 0, device=dev)
+    stream = SyntheticTokenStream(full, DataConfig(DOTS19_SEQ, DOTS19_BATCH,
+                                                   seed=0), device=dev)
+    batches = [stream.next_batch() for _ in range(DOTS19_STEPS)]
+    ce, peak, grads = {}, {}, {}
+    for name, cfg in (("dots", dots), ("full", full)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ce[name], _, grads[name] = lm_grads(params, cfg, batches[0], "cuda")
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+    ce["plain"], _, plain = lm_grads(params, dots, batches[0], "torch")
+    ce["plain32"], _, plain32 = lm_grads(
+        params, dataclasses.replace(dots, compute_dtype="float32"),
+        batches[0], "torch")
+    gate = hold_grads(f"19b {full.name} remat dots, bf16, step 0",
+                      grads["dots"], plain, plain32)
+    rel = abs(ce["dots"] - ce["full"]) / abs(ce["full"])
+    check(rel <= TRAIN_LOSS_TOL and np.isfinite(list(ce.values())).all(),
+          f"19b: step 0's loss under dots vs full: {ce}, relative {rel}")
+    held = hold_grads("19b step 0, dots vs full (kernels)", grads["dots"],
+                      grads["full"], tol=gate["bar"])
+    del grads, plain, plain32
+    torch.cuda.empty_cache()
+    return {"cfgs": (dots, full), "params": params, "batches": batches,
+            "ce": ce, "loss_rel": rel, "grad_pass_peak_gb": peak,
+            "gate_plain": {k: gate[k] for k in ("max_gap", "bar")},
+            "grads_dots_vs_full": held["max_gap"], "bar": held["bar"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def path19b(dev, gates: dict) -> dict:
+    """19b's steps from ``path19b_grads``' state: DOTS19_STEPS under
+    "dots" and one under "full", each timed (a sync after it) with its
+    peak GB; launches (``flash_fwd_wgmma`` 32 a step under both: the
+    Function runs again in the recompute)."""
+    t0 = time.perf_counter()
+    (dots, full), params, batches = (gates[k] for k in ("cfgs", "params",
+                                                        "batches"))
+    rows = {}
+    for policy, cfg, n in (("dots", dots, DOTS19_STEPS), ("full", full, 1)):
+        step_fn = make_train_step(cfg, cosine_schedule(*TRAIN15_LR))
+        p, opt = params, adamw_init(params)
+        out = []
+        _zero_lm_counts()
+        for i in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            p, opt, m = step_fn(p, opt, batches[i], i)
+            torch.cuda.synchronize()
+            out.append({"s": time.perf_counter() - t,
+                        "loss": float(m["loss"]),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        rows[policy] = {"steps": out, "launches": _lm_counts()}
+        del p, opt
+        torch.cuda.empty_cache()
+    per = step_launches(dots)
+    check(per == step_launches(full) == {"mamba2_scan": 0,
+                                         "flash_fwd_wgmma": 32,
+                                         "flash_fwd_mma": 0}
+          and rows["dots"]["launches"] == {k: DOTS19_STEPS * v for k, v
+                                           in per.items()}
+          and rows["full"]["launches"] == per,
+          f"19b: flash_fwd_wgmma 32x a step under dots and full: "
+          f"{rows['dots']['launches']}, {rows['full']['launches']}")
+    ce = gates["ce"]
+    check(rows["dots"]["steps"][0]["loss"] == ce["dots"]
+          and rows["full"]["steps"][0]["loss"] == ce["full"]
+          and np.isfinite(rows["dots"]["steps"][-1]["loss"]),
+          "19b: the steps' losses are the gates' step 0, and finite")
+    s = {"dots": rows["dots"]["steps"][-1]["s"],
+         "full": rows["full"]["steps"][0]["s"]}
+    peak = {k: r["steps"][0]["peak_gb"] for k, r in rows.items()}
+    print(f"path 19b {full.name} ({full.n_layers} layers, f32 params, bf16 "
+          f"compute, {CARD}): batch {DOTS19_BATCH} x {DOTS19_SEQ}: step s "
+          f"dots {[r['s'] for r in rows['dots']['steps']]} full "
+          f"{[r['s'] for r in rows['full']['steps']]}; peak GB a step dots "
+          f"{[r['peak_gb'] for r in rows['dots']['steps']]} full "
+          f"{[r['peak_gb'] for r in rows['full']['steps']]}; peak GB of "
+          f"step 0's forward and backward alone "
+          f"{gates['grad_pass_peak_gb']}; step 0 loss {ce} (dots vs full "
+          f"relative {gates['loss_rel']}); gradients dots vs full "
+          f"{gates['grads_dots_vs_full']} <= {gates['bar']}; launches "
+          f"dots {rows['dots']['launches']} full "
+          f"{rows['full']['launches']}; gates wall s "
+          f"{gates['wall_s']:.3f}, steps {time.perf_counter() - t0:.3f}")
+    return {"s_per_step": s, "peak_gb": peak,
+            "launches": {k: r["launches"] for k, r in rows.items()},
+            **{k: gates[k] for k in ("loss_rel", "grad_pass_peak_gb",
+                                     "gate_plain", "grads_dots_vs_full",
+                                     "bar")}}
+
+
+def path19(dev, started: dict) -> dict:
+    """Path 19: 19a's processes (``path19a_start``, started before path
+    12, which their set-up runs beside), 19b's gradient gates, 19a's
+    timed updates and gates, then 19b's timed steps."""
+    t0 = time.perf_counter()
+    try:
+        gates = path19b_grads(dev)
+    finally:
+        Path(started["out"] + ".go").touch()
+    res = {"19a": path19a(started)}
+    res["19b"] = path19b(dev, gates)
+    del gates
+    torch.cuda.empty_cache()
+    print(f"path 19 wall s: {time.perf_counter() - t0:.3f}")
+    return res
 
 
 def main() -> int:
@@ -5492,7 +6023,30 @@ def main() -> int:
     # path 12: pretraining, zero-shot serving, FleetTrainer and the
     # training CLI (gnn_mp's pair in all but FleetTrainer's numpy rewards'
     # scoring; wc_trips in the CLI's oracle and fused engines)
+    # path 19a's processes start here: their imports, trainers, warm-up
+    # update and captures run beside path 12; their timed updates wait
+    # for path 19
+    started19 = path19a_start()
     path12(dev, by_name)
+
+    # path 19: the data-parallel fused Stage II (19a: two gloo ranks in
+    # processes of their own, eager; a one-rank NCCL group captured; the
+    # gnn_mp pair and wc_trips in every rank's updates) and olmo-1b
+    # trained under remat "dots" beside "full" (19b: flash_fwd_wgmma)
+    gnn_ops.launches = gnn_ops.pair_launches = 0
+    wc_ops.launches = wc_ops.trip_launches = 0
+    _zero_lm_counts()
+    p19 = path19(dev, started19)
+    a19, b19 = p19["19a"], p19["19b"]
+    for name in ("gnn_mp_pair", "wc_oracle_trips"):
+        by_name[name]["path19"] = {
+            "launches_per_rank_update": a19["launches_per_rank_update"][
+                name],
+            "launches_captured_update": a19["nccl"]["captured"][name]}
+    by_name["flash_attention"]["path19"] = {
+        "olmo_1b_dots": b19["launches"]["dots"]["flash_fwd_wgmma"],
+        "olmo_1b_full": b19["launches"]["full"]["flash_fwd_wgmma"]}
+    del p19, a19, b19
 
     ported = {}
     for name, k in by_name.items():

@@ -37,8 +37,15 @@ on the device.  The reference traces the update into one ``jit`` and
   replay launches as many again.
 * ``vmap`` over episodes is a written-out batch axis, ``lax.scan`` over
   steps a Python loop (captured whole), ``stop_gradient`` is
-  ``detach``.  One device only: ``shard_map`` / ``pmap`` wait for ROADMAP
-  A12.
+  ``detach``.
+* **Data parallel** (``n_devices``, the reference's ``shard_map`` /
+  ``pmap``): one process a device over the default ``torch.distributed``
+  group.  Each rank samples and scores its ``K / N`` episodes of the
+  global draw tables, combines the batch moments of the advantages with
+  one all-reduce, and the gradient, loss and reward sums with one fused
+  all-reduce (a mean) before the same AdamW step on every rank; a
+  dispatch ends with one all-gather of its outputs.  With NCCL the
+  update's collectives are captured in its CUDA graph.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.gnn_mp import ops as gnn_ops
 from ..kernels.wc_oracle import ops as wc_ops
@@ -504,10 +512,16 @@ class FusedStage2(_Engine):
     ``graphed`` is its CUDA graph (or its eager runner)."""
 
     def __init__(self, cfg: FusedStage2Config, gd: GraphData, sg: SimGraph,
-                 lr_sched, eps_sched, capture: bool):
+                 lr_sched, eps_sched, capture: bool, group=None):
         super().__init__(gd, lr_sched, capture)
         self.cfg, self.sg, self.eps_sched = cfg, sg, eps_sched
-        kb = cfg.batch_size
+        # data parallel: this rank's block of the batch (its episodes of
+        # the global draw tables), or the whole batch on one device
+        self.group = group
+        self.n_ranks = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        kb = self.kb = cfg.batch_size // self.n_ranks
+        self.shard = slice(rank * kb, (rank + 1) * kb)
         if cfg.chunk_size is None:
             sc = _largest_divisor(kb, AUTO_CHUNK_CAP) if kb > AUTO_CHUNK \
                 else None
@@ -516,20 +530,20 @@ class FusedStage2(_Engine):
         else:
             if kb % cfg.chunk_size:
                 raise ValueError(f"chunk_size {cfg.chunk_size} does not "
-                                 f"divide the batch {kb}")
+                                 f"divide the per-device batch {kb}")
             sc = cfg.chunk_size
         gc = None
         if sc is not None:
             gc = cfg.grad_chunk_size or _largest_divisor(kb, min(sc, 64))
             if kb % gc:
                 raise ValueError(f"grad_chunk_size {gc} does not divide "
-                                 f"the batch {kb}")
+                                 f"the per-device batch {kb}")
         self.sample_chunk, self.grad_chunk = sc, gc
 
     def _alloc_more(self) -> None:
-        n, nd, K, dev = self.gd.n, self.gd.nd, self.cfg.batch_size, \
-            self.device
+        n, nd, K, dev = self.gd.n, self.gd.nd, self.kb, self.device
         self.rstats = RewardStats.make(device=dev)
+        self.n_ranks_t = torch.full((), float(self.n_ranks), device=dev)
         self.draws = (torch.zeros(n, K, n, device=dev),
                       torch.zeros(n, K, nd, device=dev),
                       torch.zeros(n, K, device=dev),
@@ -545,12 +559,40 @@ class FusedStage2(_Engine):
     # ---- the update: static buffers in, static buffers out
     def _advantages(self, rs):
         """Running-baseline advantages (the batch mean while the stats are
-        empty), normalised by max(running std, batch population std)."""
+        empty), normalised by max(running std, batch population std).
+        Over ranks the batch's mean and mean square are each the mean of
+        the ranks' (one all-reduce), its std sqrt(max(E[r^2] - E[r]^2,
+        0)), as the reference's sharded update takes them."""
         mean, std = self.rstats.baseline()
-        advs = rs - torch.where(self.rstats.r_count > 0, mean, rs.mean())
+        if self.n_ranks > 1:
+            moments = torch.stack([rs.mean(), (rs * rs).mean()])
+            dist.all_reduce(moments, group=self.group)
+            batch_mean, batch_sq = moments / self.n_ranks_t
+            batch_std = torch.sqrt(torch.clamp(
+                batch_sq - batch_mean * batch_mean, min=0.0))
+        else:
+            batch_mean, batch_std = rs.mean(), rs.std(correction=0)
+        advs = rs - torch.where(self.rstats.r_count > 0, mean, batch_mean)
         if self.cfg.normalize_adv:
-            advs = advs / (torch.maximum(std, rs.std(correction=0)) + 1e-9)
+            advs = advs / (torch.maximum(std, batch_std) + 1e-9)
         return advs
+
+    def _all_reduce(self, grads, loss, rs):
+        """The group's mean of the gradient, the loss and the reward sums
+        in ONE all-reduce; the reward statistics take the global batch's
+        sums and count -> (grads, loss)."""
+        leaves = tree_leaves(grads)
+        flat = torch.cat([g.reshape(-1) for g in leaves]
+                         + [torch.stack([loss, rs.sum(), (rs * rs).sum()])])
+        dist.all_reduce(flat, group=self.group)
+        flat = flat / self.n_ranks_t
+        pieces = dict(zip(map(id, leaves), torch.split(
+            flat[:-3], [g.numel() for g in leaves])))
+        st = self.rstats
+        st.r_sum.add_(flat[-2] * self.n_ranks_t)
+        st.r_sqsum.add_(flat[-1] * self.n_ranks_t)
+        st.r_count.add_(self.cfg.batch_size)
+        return tree_map(lambda g: pieces[id(g)].view_as(g), grads), flat[-3]
 
     def _score(self, rec):
         """-> makespans, ok, masked rewards of a recorded batch."""
@@ -578,7 +620,7 @@ class FusedStage2(_Engine):
             else:
                 sc = self.sample_chunk
                 parts = []
-                for c in range(cfg.batch_size // sc):
+                for c in range(self.kb // sc):
                     sl = slice(c * sc, (c + 1) * sc)
                     r = _sample_scan(self.params, gd,
                                      [t[:, sl] for t in self.draws], eps,
@@ -594,7 +636,7 @@ class FusedStage2(_Engine):
             loss, grads = self._loss(fused_pg_loss, rec, advs)
         else:
             gc = self.grad_chunk
-            ngc = cfg.batch_size // gc
+            ngc = self.kb // gc
             gsum = lsum = None
             for c in range(ngc):
                 sl = slice(c * gc, (c + 1) * gc)
@@ -607,7 +649,10 @@ class FusedStage2(_Engine):
             # equal chunk sizes: the mean of chunk means is the batch mean
             grads = tree_map(lambda g: g / ngc, gsum)
             loss = lsum / ngc
-        self.rstats.update(rs)
+        if self.group is None:
+            self.rstats.update(rs)
+        else:
+            grads, loss = self._all_reduce(grads, loss, rs)
         self._adamw(grads, loss, lr)
         self.episode.add_(cfg.batch_size)
         best = argmin_first(torch.where(ok, ms, torch.inf))
@@ -622,18 +667,21 @@ class FusedStage2(_Engine):
     # ---- a dispatch
     def _fill_draws(self, src, pinned: list) -> None:
         """The draw buffer from ``src``: injected tables, or fresh draws
-        from a ``torch.Generator`` (gumbel = -log(-log U))."""
+        from a ``torch.Generator`` (gumbel = -log(-log U)); both are the
+        global batch's, of which a rank takes its episodes' columns."""
         if isinstance(src, torch.Generator):
             for buf, gumbel in zip(self.draws, (True, True, False, False)):
-                if gumbel:
-                    buf.copy_(_gumbel(src, buf.shape))
-                else:
-                    buf.uniform_(generator=src)
+                shape = buf.shape[:1] + (self.cfg.batch_size,) + \
+                    buf.shape[2:]
+                t = _gumbel(src, shape) if gumbel else torch.empty(
+                    shape, device=buf.device).uniform_(generator=src)
+                buf.copy_(t[:, self.shard])
             return
         for buf, x in zip(self.draws, src):
-            t = torch.as_tensor(x)
+            t = torch.as_tensor(x)[:, self.shard]
             if t.device.type == "cpu" and buf.device.type == "cuda":
-                t = t.pin_memory()       # an asynchronous copy, kept alive
+                # an asynchronous copy, kept alive
+                t = t.contiguous().pin_memory()
                 pinned.append(t)
             buf.copy_(t, non_blocking=True)
 
@@ -668,19 +716,49 @@ class FusedStage2(_Engine):
 
         kept, seconds = self._run(load, fill, u, keep)
         ms, ok, best, losses = (torch.stack(x) for x in zip(*kept))
+        actions, advs = (self.out[k].clone() for k in ("actions",
+                                                       "advantages"))
+        if self.group is not None:
+            ms, ok, best, actions, advs = self._gather(ms, ok, best,
+                                                       actions, advs)
         return {**self._state_out(opt_state, u),
                 "rstats": RewardStats(*(t.clone()
                                         for t in self.rstats.tensors())),
                 "makespans": ms, "oracle_ok": ok, "best_assignments": best,
-                "losses": losses,
-                "actions": self.out["actions"].clone(),
-                "advantages": self.out["advantages"].clone(),
+                "losses": losses, "actions": actions, "advantages": advs,
                 "seconds": seconds}
+
+    def _gather(self, ms, ok, best, actions, advs):
+        """The ranks' outputs of a dispatch in ONE all-gather (packed in
+        float64, exact for all of them): makespans and flags (U, K) and
+        the last update's actions and advantages (K, ...), the ranks'
+        blocks in rank order; each update's best assignment the one of
+        the rank whose own best valid makespan is lowest (ties to the
+        lower rank), as the reference's sharded dispatch returns them."""
+        U, kb, N = ms.shape[0], self.kb, self.n_ranks
+        parts = (ms, ok, best, actions, advs)
+        packed = torch.cat([t.reshape(-1).double() for t in parts])
+        got = [torch.empty_like(packed) for _ in range(N)]
+        dist.all_gather(got, packed, group=self.group)
+        sizes = [t.numel() for t in parts]
+        cols = [torch.stack(x) for x in zip(*(torch.split(g, sizes)
+                                              for g in got))]
+        ms_r = cols[0].view(N, U, kb).float()
+        ok_r = cols[1].view(N, U, kb).bool()
+        best_r = cols[2].view(N, U, -1).long()
+        own = torch.where(ok_r, ms_r, torch.inf).amin(2)      # (N, U)
+        win = argmin_first(own.T)                              # (U,)
+        return (ms_r.permute(1, 0, 2).reshape(U, N * kb),
+                ok_r.permute(1, 0, 2).reshape(U, N * kb),
+                best_r[win, torch.arange(U, device=win.device)],
+                cols[3].view((N * kb,) + actions.shape[1:]).long(),
+                cols[4].view(N * kb).float())
 
 
 def build_fused_stage2(cfg: FusedStage2Config, gd: GraphData, sg: SimGraph,
-                       lr_sched, eps_sched, n_devices: int = 1,
-                       capture: bool = False) -> FusedStage2:
+                       lr_sched, eps_sched, n_devices: int | None = None,
+                       capture: bool = False,
+                       spmd: str = "shard_map") -> FusedStage2:
     """The fused Stage II engine: each update replays the reference
     path's bookkeeping exactly (eps and lr at the episode counter from
     before the update; the running baseline, or the batch mean while the
@@ -692,15 +770,43 @@ def build_fused_stage2(cfg: FusedStage2Config, gd: GraphData, sg: SimGraph,
     micro-chunks (reduced recordings, one ``wc_trips`` launch each), the
     advantages taken over the whole batch, and the gradient accumulated
     over ``grad_chunk_size`` chunks; the sampled episodes are the
-    monolithic engine's."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            "the fused engine runs on one device; the data-parallel "
-            "shard_map / pmap paths wait for ROADMAP A12")
+    monolithic engine's.
+
+    ``n_devices`` N runs the reference's data-parallel semantics over the
+    default ``torch.distributed`` process group, which the caller
+    initializes with world size N (one process a device): each rank
+    takes episodes [r K/N, (r + 1) K/N) of the global draws, and every
+    rank returns the same result.  None, or 1 without a group, is the
+    single-device engine; 1 over a group of one rank runs the
+    collectives on their own (a mean over one rank: the same bits).
+    ``spmd`` ("shard_map" or "pmap", the reference's two lowerings) is
+    validated as the reference does; both run the same code here."""
+    if spmd not in ("shard_map", "pmap"):
+        raise ValueError(f"unknown spmd mode {spmd!r}")
     if capture and cfg.oracle_backend != "cuda":
         raise ValueError("capture needs oracle_backend='cuda': the plain "
                          "trip loop checks its exit on the host")
-    return FusedStage2(cfg, gd, sg, lr_sched, eps_sched, capture)
+    group = None
+    if n_devices is not None:
+        if n_devices < 1 or cfg.batch_size % n_devices:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                             f"by {n_devices} devices")
+        if dist.is_available() and dist.is_initialized():
+            group = dist.group.WORLD
+            if dist.get_world_size(group) != n_devices:
+                raise ValueError(
+                    f"n_devices {n_devices} over a process group of "
+                    f"{dist.get_world_size(group)} ranks")
+        elif n_devices > 1:
+            raise ValueError(
+                f"n_devices {n_devices} needs the default torch.distributed "
+                f"process group initialized with world size {n_devices}")
+        if group is not None and capture \
+                and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                f"capture needs collectives a CUDA graph can hold (nccl), "
+                f"not {dist.get_backend(group)!r}")
+    return FusedStage2(cfg, gd, sg, lr_sched, eps_sched, capture, group)
 
 
 # ----------------------------------------------------- fused imitation

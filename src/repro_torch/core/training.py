@@ -640,7 +640,13 @@ class DopplerTrainer:
         set of step-major tables per update (None: fresh draws from
         ``generator``, four calls an update).  Raises RuntimeError if the
         oracle flags any episode as not converged (those advantages were
-        masked in-update; the dispatch is discarded)."""
+        masked in-update; the dispatch is discarded).  ``n_devices`` N
+        shards each batch over the default ``torch.distributed`` group of
+        N ranks, one trainer a rank on the same params, draws and
+        generator seed (:func:`~.train_fused.build_fused_stage2`): every
+        rank keeps the same state and records, and ``last_update`` holds
+        the whole batch's actions and advantages and the all-reduced
+        gradient."""
         from .train_fused import (FusedStage2Config, RewardStats,
                                   build_fused_stage2)
         if draws is not None and len(draws) != n_updates:
@@ -660,10 +666,9 @@ class DopplerTrainer:
         sg = self._fused_engine("sim_graph", lambda: SimGraph.build(
             self.g, self.dev, self.device))
         eng = self._fused_engine(
-            ("stage2", cfg.graph_key(), n_devices or 1, capture),
+            ("stage2", cfg.graph_key(), n_devices, capture),
             lambda: build_fused_stage2(cfg, self.gd, sg, self.lr_sched,
-                                       self.eps_sched, n_devices or 1,
-                                       capture))
+                                       self.eps_sched, n_devices, capture))
         rstats = RewardStats.make(self._r_sum, self._r_sqsum, self._r_count,
                                   self.device)
         times: list[float] = []

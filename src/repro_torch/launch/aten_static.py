@@ -42,7 +42,8 @@ depth (``dryrun.py``), as ``graphs/model_zoo.py`` tiles one unit.
 
 Where DTensor's own rule would gather a whole tensor and GSPMD would
 partition the work (``logsumexp`` over a sharded vocabulary, a gather's
-gradient, a slice of a sharded sequence, views of two sharded dims),
+gradient, an embedding's lookup and its gradient, a slice of a sharded
+sequence, views of two sharded dims),
 ``_RULES`` run the operator on the local shards.  An operator that
 DTensor cannot shard (no sharding rule, or a view it cannot split) runs
 replicated: its DTensor inputs are gathered in full
@@ -430,6 +431,169 @@ def _scatter_add(func, args, kwargs):
                               stride=x.stride())
 
 
+def _index(func, args, kwargs):
+    """``index(self, [index])`` with one integer index (the embedding's
+    lookup, the MoE dispatch's gathers): ``self`` laid out so that no
+    mesh dim splits the indexed dim 0 (a split of it moves, by an
+    all-to-all, to the largest other dim that it divides, else it is
+    gathered), the index gathered over the mesh dims that split ``self``
+    and kept split over the others; the lookup is then local, and the
+    output split as ``self`` and the index are.  This is the layout
+    torch 2.13's DTensor picks; pinned here, the walker records the same
+    work on every torch version (2.11 gathers the table).  None for
+    another form."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, indices = args[0], args[1]
+    if kwargs or not (isinstance(x, DTensor) and len(indices) == 1
+                      and isinstance(indices[0], torch.Tensor)
+                      and indices[0].dtype not in (torch.bool, torch.uint8)):
+        return None
+    index = indices[0]
+    if any(not isinstance(p, (Shard, Replicate)) for p in x.placements) or (
+            isinstance(index, DTensor) and any(
+                not isinstance(p, (Shard, Replicate))
+                for p in index.placements)):
+        return None
+    mesh, lead = x.device_mesh, index.ndim
+    local = list(x.shape)
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim > 0:
+            local[p.dim] //= mesh.size(i)
+    pl = []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            n = mesh.size(i)
+            fits = [d for d in range(1, x.ndim) if local[d] % n == 0
+                    and local[d] >= n]
+            if fits:
+                d = max(fits, key=lambda d: local[d])
+                local[d] //= n
+                p = Shard(d)
+            else:
+                p = Replicate()
+        pl.append(p)
+    if list(x.placements) != pl:
+        x = x.redistribute(mesh, pl)
+    out_pl = [Shard(p.dim - 1 + lead) if isinstance(p, Shard) else p
+              for p in pl]
+    shape = tuple(index.shape) + tuple(x.shape[1:])
+    if isinstance(index, DTensor):
+        # the index stays split where ``self`` is replicated (the output
+        # split alike), and is gathered where ``self`` is split
+        want = [q if isinstance(p, Replicate) else Replicate()
+                for p, q in zip(pl, index.placements)]
+        out_pl = [q if isinstance(p, Replicate) else o
+                  for p, q, o in zip(pl, want, out_pl)]
+        if list(index.placements) != want:
+            index = index.redistribute(mesh, want)
+        index = index.to_local()
+    out = func(x.to_local(), [index])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _index_put(func, args, kwargs):
+    """``index_put(self, [index], values, accumulate=True)`` (and the
+    in-place ``_index_put_impl_``) into a ``self`` sharded on the indexed
+    dim 0 (the embedding's gradient into a vocab-sharded table): each
+    device adds the entries whose index falls in its block of rows, the
+    others masked, on its local shard, as GSPMD partitions a scatter.
+    Per mesh dim: where ``self`` is split by rows, the index and
+    ``values`` are gathered; where by another dim, ``values`` is split
+    alike; where ``self`` is replicated and the index and ``values`` are
+    split by the same index dim, each device adds its own entries, the
+    result a partial sum there (``self``'s own values counted once).
+    This runs the same work whether or not the installed torch has a
+    DTensor strategy for the operator.  None for another form (DTensor's
+    rule or the replicated fallback then apply)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x, indices, values = args[0], args[1], args[2]
+    accumulate = args[3] if len(args) > 3 else kwargs.get("accumulate",
+                                                          False)
+    if not (isinstance(x, DTensor) and isinstance(values, DTensor)
+            and accumulate and len(indices) == 1
+            and isinstance(indices[0], DTensor)
+            and indices[0].dtype != torch.bool):
+        return None
+    index = indices[0]
+    lead = values.ndim - (x.ndim - 1)       # the index's dims in values
+    if lead != index.ndim or any(
+            not isinstance(p, (Shard, Replicate))
+            for p in (*x.placements, *values.placements, *index.placements)):
+        return None
+    red = [i for i, p in enumerate(x.placements)
+           if isinstance(p, Shard) and p.dim == 0]
+    if not red:
+        return None
+    mesh = x.device_mesh
+    want_v, want_i, partial = [], [], []
+    for i, p in enumerate(x.placements):
+        v, ix = values.placements[i], index.placements[i]
+        if isinstance(p, Shard) and p.dim > 0:
+            want_v.append(Shard(p.dim - 1 + lead))
+            want_i.append(Replicate())
+        elif (isinstance(p, Replicate) and isinstance(v, Shard)
+              and v.dim < lead and ix == v):
+            want_v.append(v)
+            want_i.append(ix)
+            partial.append(i)
+        else:
+            want_v.append(Replicate())
+            want_i.append(Replicate())
+    if list(values.placements) != want_v:
+        values = values.redistribute(mesh, want_v)
+    if list(index.placements) != want_i:
+        index = index.redistribute(mesh, want_i)
+    local = x.to_local()
+    coord = mesh.get_coordinate()
+    if any(coord[i] for i in partial):
+        local = torch.zeros_like(local)    # self counted on one device
+    offset, extent = 0, x.shape[0]
+    for i in red:
+        extent //= mesh.size(i)
+        offset += coord[i] * extent
+    idx = index.to_local() - offset
+    inside = (idx >= 0) & (idx < local.shape[0])       # this device's rows
+    vals = values.to_local()
+    vals = torch.where(inside.reshape(inside.shape + (1,) * (vals.ndim
+                                                             - lead)),
+                       vals, 0)
+    out = func(local, [torch.where(inside, idx, 0)], vals, *args[3:],
+               **kwargs)
+    pl = [Partial() if i in partial else p
+          for i, p in enumerate(x.placements)]
+    res = DTensor.from_local(out, mesh, pl, run_check=False, shape=x.shape,
+                             stride=x.stride())
+    if func.overloadpacket.__name__.endswith("_"):     # in place
+        if partial:
+            res = res.redistribute(mesh, x.placements)
+            x.to_local().copy_(res.to_local())
+        return x
+    return res
+
+
+def _on_replicas(func, args, kwargs):
+    """An operator DTensor has no rule for (``searchsorted``: the MoE
+    plan's expert boundaries in its sorted choices), on inputs replicated
+    over the whole mesh: every device runs it on its own copies, the
+    outputs replicated.  The same work as the replicated fallback, which
+    would gather nothing here; None for a sharded input."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dts = [a for a in pytree.tree_leaves((args, kwargs))
+           if isinstance(a, DTensor)]
+    if not dts or any(not isinstance(p, Replicate)
+                      for d in dts for p in d.placements):
+        return None
+    mesh = dts[0].device_mesh
+    la, lk = pytree.tree_map(
+        lambda a: a.to_local() if isinstance(a, DTensor) else a,
+        (args, kwargs))
+    return pytree.tree_map(
+        lambda o: DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        if isinstance(o, torch.Tensor) else o, func(*la, **lk))
+
+
 def _new_factory(func, args, kwargs):
     """``x.new_zeros(size)`` (and ``new_empty`` / ``new_ones`` /
     ``new_full``) sharded as ``x`` is on the dims where ``size`` keeps
@@ -690,6 +854,9 @@ def _contiguous_stride(shape) -> tuple:
 
 
 _RULES = {"logsumexp": _logsumexp, "scatter_add": _scatter_add,
+          "index": _index, "index_put": _index_put,
+          "_index_put_impl_": _index_put,
+          "searchsorted": _on_replicas,
           "slice": _slice, "log_sigmoid_forward": _pointwise,
           "log_sigmoid_backward": _pointwise,
           "view": _view, "_unsafe_view": _view, "reshape": _view,
@@ -910,28 +1077,30 @@ def _fake_mode_of(args):
 @contextlib.contextmanager
 def _gpu_collectives():
     """DTensor's Shard -> Shard redistribution as the all-to-all it is on
-    cards (NCCL): on a 'cpu' mesh it takes gloo's all-gather + chunk."""
-    try:
-        from torch.distributed.tensor import placement_types as pt
-        from torch.distributed._functional_collectives import (
-            _group_or_group_name, _resolve_group)
-    except ImportError:
-        yield
-        return
-    if not hasattr(pt, "shard_dim_alltoall"):
-        yield
-        return
+    cards (NCCL): on a 'cpu' mesh ``shard_dim_alltoall`` takes gloo's
+    all-gather + chunk.  Replaced in every module that holds it by name,
+    the group named by ``_resolve_group_name``, which torch 2.11 and 2.13
+    both have (2.11 lacks ``_group_or_group_name``: ROADMAP C10), so the
+    walker records the same collectives on either version."""
+    import importlib
+    import torch.distributed._functional_collectives as funcol
 
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = _resolve_group((mesh, mesh_dim))
         return torch.ops._dtensor.shard_dim_alltoall(
-            input, gather_dim, shard_dim, _group_or_group_name(group))
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
 
-    prev, pt.shard_dim_alltoall = pt.shard_dim_alltoall, alltoall
+    patched = []
+    for name in ("_collective_utils", "placement_types", "_redistribute"):
+        mod = importlib.import_module(f"torch.distributed.tensor.{name}")
+        if hasattr(mod, "shard_dim_alltoall"):
+            patched.append((mod, mod.shard_dim_alltoall))
+            mod.shard_dim_alltoall = alltoall
     try:
         yield
     finally:
-        pt.shard_dim_alltoall = prev
+        for mod, fn in patched:
+            mod.shard_dim_alltoall = fn
 
 
 @contextlib.contextmanager

@@ -36,10 +36,14 @@ embedding rows after the lookup and the head at the product, so a weight
 used more than once (the shared attention, a tied embedding) gathers its
 gradient in float32.  Serving casts once at load (``cast_params``), which
 makes those casts no-ops.  Training (``lm_loss``) takes the float32
-parameters as they are; with ``cfg.remat`` (policy "full") each
-repetition of the unit runs under activation checkpointing, as the
-reference's ``jax.checkpoint`` over its scan body, and runs forward again
-in the backward pass.  ``cfg.attn_mixed_precision`` rounds the attention
+parameters as they are; with ``cfg.remat`` each repetition of the unit
+runs under activation checkpointing, as the reference's
+``jax.checkpoint`` over its scan body, and runs forward again in the
+backward pass: all of it under policy "full" (``nothing_saveable``), all
+but the matrix products without a batch dim under "dots"
+(``dots_with_no_batch_dims_saveable``: the ``mm`` / ``addmm`` outputs
+are kept, while ``bmm``, the kernels' Functions and the elementwise ops
+run again).  ``cfg.attn_mixed_precision`` rounds the attention
 probabilities to the compute dtype before their product with v in the
 plain version (prefill, train and decode); the flash kernels compute
 their fp32-P mode either way (``kernels/flash_attention/ops.py``).
@@ -51,10 +55,13 @@ states and conv tails are returned as new tensors, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
 from ..core.nn import tree_map
@@ -341,17 +348,34 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether each repetition of the unit runs under activation
-    checkpointing: ``cfg.remat`` with policy "full" (the reference's
-    ``nothing_saveable``), when a backward pass can follow."""
+# the matrix products without a batch dim: what "dots" keeps (``x @ w``
+# on a (B, S, D) ``x`` is an ``mm`` on a view of it)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# the checkpoint's arguments of each policy
+_REMAT_KWARGS = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}}
+
+
+def _remat(cfg: ModelConfig) -> dict | None:
+    """The ``checkpoint`` arguments each repetition of the unit runs
+    under (``cfg.remat`` with policy "full" or "dots", when a backward
+    pass can follow), or None: no activation checkpointing."""
     if not (cfg.remat and cfg.remat_policy != "none"
             and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is {UNPORTED}")
-    return True
+        return None
+    if cfg.remat_policy not in _REMAT_KWARGS:
+        raise ValueError(f"{cfg.name}: unknown remat_policy "
+                         f"{cfg.remat_policy!r}")
+    return _REMAT_KWARGS[cfg.remat_policy]
 
 
 def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
@@ -405,15 +429,15 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
                 aux = aux + a
         return x, new, aux
 
-    remat = state is None and _remat(cfg)
+    remat = None if state is not None else _remat(cfg)
     aux_total = torch.zeros((), device=x.device)
     unit_params = list(zip(*(_unstack(p, reps) for p in params["unit"])))
     new_unit = [[] for _ in unit]
     for r, ps in enumerate(unit_params):
-        if remat:
+        if remat is not None:
             x, aux = checkpoint(
                 lambda x, ps: unit_rep(x, ps, [None] * len(unit))[::2], x,
-                ps, use_reentrant=False)
+                ps, use_reentrant=False, **remat)
         else:
             sts = [None] * len(unit) if state is None else [
                 tree_map(lambda t: t[r], st) for st in state["unit"]]

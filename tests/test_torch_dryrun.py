@@ -201,7 +201,7 @@ from repro.launch.hlo_static import analyze_hlo
 from repro.train.optim import AdamState
 from repro.launch.mesh import _auto
 mesh = jax.make_mesh((4, 2), ("data", "model"), axis_types=_auto(2))
-cfg = dataclasses.replace(get_config("olmo_1b"), n_layers={layers})
+cfg = dataclasses.replace(get_config({arch!r}), n_layers={layers})
 batch = input_specs(cfg, {seq}, {batch}, "train")
 ps = param_structs(cfg)
 pspecs = param_specs(ps, mesh, cfg)
@@ -216,36 +216,118 @@ with jax.set_mesh(mesh):
     compiled = jitted.lower(ps, os_, batch,
                             jax.ShapeDtypeStruct((), jnp.int32)).compile()
 st = analyze_hlo(compiled.as_text(), n_devices=8)
-print(json.dumps({{"argument_bytes":
-                  compiled.memory_analysis().argument_size_in_bytes, **st}}))
+mem = compiled.memory_analysis()
+print(json.dumps({{"argument_bytes": mem.argument_size_in_bytes,
+                  "temp_bytes": mem.temp_size_in_bytes, **st}}))
 """
 
 
-@pytest.mark.slow
-def test_eight_devices_match_reference_per_device():
-    layers, seq, batch = 2, 256, 8
+def _eight_devices(arch, layers=2, seq=256, batch=8) -> tuple:
+    """(the reference's per-device numbers on 8 host devices, the port's
+    trace on (4, 2), the port's argument bytes) for ``arch`` at full width
+    over ``layers`` layers; each ratio printed."""
     out = subprocess.run(
-        [sys.executable, "-c", REF8.format(src=SRC, layers=layers, seq=seq,
-                                           batch=batch)],
+        [sys.executable, "-c", REF8.format(src=SRC, arch=arch, layers=layers,
+                                           seq=seq, batch=batch)],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr[-3000:]
     ref = json.loads(out.stdout.strip().splitlines()[-1])
-    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     cell = ShapeCell("t", seq, batch, "train")
     mesh = {"data": 4, "model": 2}
     args = dryrun.argument_bytes(cfg, cell, mesh)
     tr = dryrun.trace_step(cfg, cell, mesh)
     cost = tr["cost"]
     kinds = sorted(set(ref["collective_by_kind"]) | set(cost.coll_by_kind))
-    print("argument bytes", args["total"] / ref["argument_bytes"],
+    print(arch, "argument bytes", args["total"] / ref["argument_bytes"],
+          "temp", tr["peak_bytes"] / ref["temp_bytes"],
           "collective bytes", cost.coll_bytes / ref["collective_bytes"],
           "flops", cost.flops / ref["flops"],
           {k: (cost.coll_by_kind.get(k, 0.0),
-               ref["collective_by_kind"].get(k, 0.0)) for k in kinds})
+               ref["collective_by_kind"].get(k, 0.0)) for k in kinds},
+          "fallbacks", tr["fallbacks"])
+    return ref, tr, args
+
+
+@pytest.mark.slow
+def test_eight_devices_match_reference_per_device():
+    ref, tr, args = _eight_devices("olmo_1b")
     assert tr["fallbacks"] == {}
     assert args["total"] == pytest.approx(ref["argument_bytes"], rel=0.01)
-    assert 0.5 <= cost.coll_bytes / ref["collective_bytes"] <= 2.0
+    assert 0.5 <= tr["cost"].coll_bytes / ref["collective_bytes"] <= 2.0
+
+
+@pytest.mark.slow
+def test_eight_devices_moe_cell_matches_reference():
+    """granite-moe (the 40-expert capacity fallback) over 2 layers on
+    (4, 2) at olmo's bars; the dispatch plan's ``searchsorted`` runs on
+    the replicated sorted choices (``aten_static._on_replicas``), so no
+    operator falls back."""
+    ref, tr, args = _eight_devices("granite_moe_3b_a800m")
+    assert tr["fallbacks"] == {}
+    assert args["total"] == pytest.approx(ref["argument_bytes"], rel=0.01)
+    assert 0.5 <= tr["cost"].coll_bytes / ref["collective_bytes"] <= 2.0
+
+
+def test_shard_to_shard_is_an_all_to_all_on_either_torch(monkeypatch):
+    """A Shard -> Shard redistribution on the sizing mesh (a 'cpu' mesh,
+    where DTensor falls back to all-gather + chunk) is recorded as the
+    all-to-all it is on cards, also without the helpers torch 2.11 lacks
+    (``_group_or_group_name``): C10's cause on the card."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch.mesh import destroy_sizing_mesh, make_sizing_mesh
+    monkeypatch.delattr(funcol, "_group_or_group_name", raising=False)
+    mesh = make_sizing_mesh({"data": 4, "model": 2})
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+            local = torch.empty(2, 8, 16)
+        x = DTensor.from_local(local, mesh, [Shard(0), Shard(2)],
+                               run_check=False, shape=(8, 8, 32),
+                               stride=(256, 32, 1))
+        with fake:
+            res = trace_cost(lambda t: t.redistribute(
+                mesh, [Shard(0), Shard(1)]), x, n_devices=8)
+    finally:
+        destroy_sizing_mesh()
+    assert dict(res["cost"].coll_counts) == {"all-to-all": 1.0}
+
+
+def test_embedding_gradient_needs_no_dtensor_strategy(monkeypatch):
+    """The embedding's lookup (``index``) and gradient (``index_put``)
+    in the vocab-sharded table run the walker's own rules
+    (``aten_static._index``, ``_index_put``): the same cell with
+    DTensor's strategies for them removed (torch 2.11 has none for
+    ``index_put``, and shards ``index`` otherwise) has the same temp,
+    collectives and (no) fallbacks."""
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=2)
+    cell = ShapeCell("t", 64, 8, "train")
+    mesh = {"data": 4, "model": 2}
+
+    def trace():
+        tr = dryrun.trace_step(cfg, cell, mesh)
+        return (tr["peak_bytes"], dict(tr["cost"].coll_by_kind),
+                dict(tr["cost"].coll_counts), tr["fallbacks"])
+    with_strategy = trace()
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    removed = 0
+    for table in (prop.op_strategy_funcs, prop.op_to_rules,
+                  getattr(prop, "op_single_dim_strategy_funcs", {})):
+        for op in [op for op in table if "index_put" in str(op)
+                   or str(op) == "aten.index.Tensor"]:
+            monkeypatch.delitem(table, op)
+            removed += 1
+    assert removed
+    # the shardings DTensor already worked out, in Python and in C++
+    monkeypatch.setattr(prop, "propagate_op_sharding", type(
+        prop.propagate_op_sharding)(prop.propagate_op_sharding_non_cached))
+    getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+            lambda: None)()
+    without = trace()
+    assert without == with_strategy
+    assert without[3] == {}
 
 
 # ------------------------------------------------------------------ CLI

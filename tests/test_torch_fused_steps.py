@@ -27,12 +27,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import make_diamond
 from repro.core import sim_jax
 from repro.core import train_fused as jax_fused
-from repro_torch.core import training
+from repro_torch.core import train_fused, training
 from repro_torch.core.devices import get_device_model, uniform_box
 from repro_torch.core.sim_torch import SimGraph
 from repro_torch.graphs.workloads import get_workload
@@ -115,14 +116,36 @@ def test_stage2_fused_learns():
     assert tr.best_time <= min(times) + 1e-12
 
 
-def test_stage2_fused_arguments():
+def test_stage2_fused_arguments(tmp_path):
+    """The data-parallel engine's refusals: K not divisible by N, no
+    process group or one of another size, ``capture`` over gloo (its
+    collectives cannot be held in a CUDA graph), an unknown ``spmd``."""
     _, pt = trainer_pair("diamond", "p100x4")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="not divisible"):
+        pt.stage2_fused(1, batch_size=4, n_devices=3)
+    with pytest.raises(ValueError, match="process group"):
         pt.stage2_fused(1, batch_size=4, n_devices=2)
     with pytest.raises(ValueError, match="CUDA"):
         pt.stage2_fused(1, batch_size=4, capture=True)
     with pytest.raises(ValueError, match="draw tables"):
         pt.stage2_fused(2, batch_size=4, draws=[None])
+    sg = SimGraph.build(pt.g, pt.dev)
+    cfg = train_fused.FusedStage2Config(batch_size=4, updates=1,
+                                        oracle_backend="cuda")
+    with pytest.raises(ValueError, match="spmd"):
+        train_fused.build_fused_stage2(cfg, pt.gd, sg, pt.lr_sched,
+                                       pt.eps_sched, spmd="vmap")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="group of 1 ranks"):
+            pt.stage2_fused(1, batch_size=4, n_devices=2)
+        with pytest.raises(ValueError, match="nccl"):
+            train_fused.build_fused_stage2(cfg, pt.gd, sg, pt.lr_sched,
+                                           pt.eps_sched, n_devices=1,
+                                           capture=True)
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------------------------- Stage I

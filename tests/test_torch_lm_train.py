@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.registry import get_config as jax_get_config
 from repro.models import steps as jax_steps
@@ -44,7 +45,7 @@ from repro.train import optim as jax_optim
 from repro.train.data import DataConfig as JaxDataConfig
 from repro.train.data import SyntheticTokenStream as JaxStream
 from repro_torch.configs.registry import ARCH_IDS, get_config
-from repro_torch.core.nn import tree_leaves, value_and_grad
+from repro_torch.core.nn import tree_leaves, tree_map, value_and_grad
 from repro_torch.models import steps, transformer
 from repro_torch.models.common import IGNORE_ID, cross_entropy_loss
 from repro_torch.models.convert import (adam_state_from_numpy,
@@ -290,11 +291,68 @@ def test_remat_gives_the_same_loss_and_grads():
     assert (na, nb) == (n_unit + len(rem), 2 * n_unit + len(rem))
 
 
+class _CountMM(TorchDispatchMode):
+    """Counts ``aten.mm`` calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def backward_mms(cfg, params, batch) -> tuple:
+    """(loss, grads, the ``aten.mm`` calls of the backward pass alone)."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    ps = tree_map(lambda _: next(it), params)
+    loss, _ = transformer.lm_loss(ps, cfg, batch)
+    with _CountMM() as mode:
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params), mode.mm
+
+
+def assert_dots_remat(arch, **kw):
+    """``remat_policy="dots"`` on the reduced config (``kw`` overrides):
+    loss and gradients against the reference's "dots" at the bars above,
+    against the port's "full" within 1e-6 (as remat against none), and a
+    backward pass that runs the unit's matrix products only for the
+    gradient: as many ``aten.mm`` as without remat, fewer than "full"
+    (which runs the forward's again)."""
+    cfg_j, cfg = configs(arch, remat=True, remat_policy="dots", **kw)
+    params_np = reference_params(cfg_j)
+    batch = batches(cfg, 1)[0]
+    vg = jax.jit(jax.value_and_grad(jax_tf.lm_loss, has_aux=True),
+                 static_argnums=1)
+    (_, (ce, aux)), grads_ref = vg(to_jax(params_np), cfg_j, to_jax(batch))
+    params, pb = params_from_numpy(params_np), to_port(batch)
+    (loss, (ce_t, aux_t)), grads = port_grads(cfg, params, pb)
+    assert_rel(ce_t, ce, LOSS_TOL, "ce")
+    assert_rel(aux_t, aux, LOSS_TOL, "aux")
+    assert_leaves_close(grads, jax.tree_util.tree_map(np.asarray, grads_ref),
+                        F32_TOL)
+    runs = {policy: backward_mms(dataclasses.replace(
+        cfg, remat=policy != "none", remat_policy=policy), params, pb)
+        for policy in ("dots", "full", "none")}
+    assert float(runs["dots"][0]) == pytest.approx(float(loss), rel=1e-6)
+    for policy in ("full", "none"):
+        assert float(runs[policy][0]) == pytest.approx(float(loss), rel=1e-6)
+        assert_leaves_close(runs["dots"][1],
+                            params_to_numpy(runs[policy][1]), 1e-6)
+    assert runs["dots"][2] == runs["none"][2] < runs["full"][2]
+
+
 def test_remat_policy_dots_raises():
-    _, cfg = configs("olmo_1b", remat=True, remat_policy="dots")
+    """(Named when "dots" raised.)  "dots" trains reduced olmo-1b at the
+    reference's numbers, and an unknown policy raises."""
+    assert_dots_remat("olmo_1b")
+    _, cfg = configs("olmo_1b", remat=True, remat_policy="some")
     p = transformer.init_params(cfg, 0, device="cpu")
     batch = to_port(batches(cfg, 1)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="remat_policy"):
         transformer.lm_loss(p, cfg, batch)
     with torch.no_grad():            # no backward: nothing to checkpoint
         transformer.lm_loss(p, cfg, batch)
