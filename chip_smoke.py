@@ -230,9 +230,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    On each path the launch counts are reset just before it is driven and
    read just after (checks against plain versions and timings excluded);
    every Pallas kernel must have a port that launched on its path.
-13. serving path, run right after item 14: xlstm-1.3b at full width and
-   depth (48 layers: 42 mLSTM and 6 sLSTM blocks, d_model 2048, vocab
-   50,304; random seed-0 weights in bf16, ~3.4e9 parameters).  First
+13. serving path, run right after item 14: xlstm-1.3b at full width
+   over XLSTM_SERVE_LAYERS = 24 of its 48 layers (21 mLSTM and 3 sLSTM
+   blocks, d_model 2048, vocab 50,304; random seed-0 weights in bf16).  First
    ``mamba2_scan`` against its plain version at xLSTM's mLSTM prefill
    shape (B 4, S 2048, H 4, N = P = 1024 a head, 1025 columns of v with
    the normalizer channel, chunk 256, q and k per head) with and without
@@ -240,15 +240,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    33-1025), timed by pass beside the fp32 and tensor-core bounds.  Then
    batch 4 x prompt 2048, 32 greedy tokens through
    ``repro_torch.launch.serve``'s functions: one prefill must launch
-   ``mamba2_scan`` 42 times and ``flash_attention`` never, by the
+   ``mamba2_scan`` 21 times and ``flash_attention`` never, by the
    wrappers' counts, in the served prefill and in the profiled one, whose
    profile must hold each of the scan's four kernels.  Logits gates at
-   zamba2's bars: bf16 over 48 layers on each of XLSTM_BF16_SEEDS no
+   zamba2's bars: bf16 over the 24 layers on each of XLSTM_BF16_SEEDS no
    further from the plain path than its own bf16-vs-fp32 gap; fp32 over
    one full-width unit (XLSTM_UNIT_LAYERS, 7 mLSTM + 1 sLSTM) within
    LOGITS_TOL, both paths' error against the plain path in float64
    printed beside it.  Prints prefill s, decode ms a step, tokens per
-   second, peak memory, the sLSTM loop inside served prefills (its 6
+   second, peak memory, the sLSTM loop inside served prefills (its 3
    blocks' calls timed between syncs; the first block's launches under
    the profiler), and one prefill and one decode step under
    ``torch.profiler``.
@@ -385,7 +385,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    a step under both), seconds and peak GB each.
    Path 18a's olmo-1b train_4k x pod cell is held to the CPU's sizing:
    temp within 1%, memory-bound, no operator run replicated.
-20. prints the ``kernels`` JSON line and, last, the result line.
+20. sharded LM training, run last (``path20``): 20a calls
+   ``flash_attention`` and ``ssd_scan`` on CUDA DTensors split over the
+   heads of a (1, m) mesh, each rank in turn on a fake group: olmo's
+   attention shape (16 heads = KV, m 4) and qwen3-moe's (64 over 4 KV
+   heads, m 16: the KV heads replicated, each rank taking the KV head
+   its query heads map to) on ``flash_fwd_wgmma``, gemma's (one KV head)
+   on ``flash_fwd_mma``, zamba2's scan shape on ``mamba2_scan``: every
+   rank's output bit-equal to the heads it owns of the one-device call.
+   20b: olmo-1b at full width and depth (f32 params, bf16 compute,
+   remat), batch 4 x 2,048, 2 steps of ``launch/train.py::train_loop``
+   unsharded and over a one-rank NCCL group's (1, 1) mesh from the same
+   params: losses and params bit-equal (else within 1e-6), 32
+   ``flash_fwd_wgmma`` a step under both, no operator run whole.  20c:
+   granite-moe at full width over 2 layers, batch 1 x 512, loss, aux and
+   gradients under ``dispatch="shard_map"`` on that mesh against the
+   gspmd plan unsharded: bit-equal, else within path 15b's bar.
+21. prints the ``kernels`` JSON line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -467,6 +483,8 @@ from repro_torch.launch import doppler_train  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import place_server  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
+from repro_torch.launch.mesh import (destroy_sizing_mesh,  # noqa: E402
+                                     make_sizing_mesh)
 from repro_torch.launch.place_server import PlacementServer  # noqa: E402
 from repro_torch.launch.serve import (generate, load_model,  # noqa: E402
                                       prompt_inputs, prompt_positions,
@@ -504,6 +522,10 @@ GEMMA_ARCH = "gemma_2b"
 # gate and fp64 reading over one full-width unit (7 mLSTM + 1 sLSTM):
 # fp32 and fp64 copies of all 48 layers would take 13.7 and 27 GB
 XLSTM_ARCH, XLSTM_UNIT_LAYERS = "xlstm_1p3b", 8
+# path 13 serves xlstm-1.3b over its first 24 of 48 layers (3 of its 6
+# 8-layer units: 21 mLSTM + 3 sLSTM), a depth cut that keeps
+# every gate (the full 48 layers took 123-187 s of the script)
+XLSTM_SERVE_LAYERS = 24
 # kernel vs plain: tests/test_kernels.py's bars (flash: atol = rtol =
 # 2e-5 in fp32, 2e-2 in bf16 and fp16; mamba2_scan: 1e-4 of max(|ref|, 1))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -611,7 +633,7 @@ PATH18A_BUDGET_S = 60.0
 # (``python -m repro_torch.launch.dryrun --arch olmo_1b --shape train_4k
 # --mesh pod``, torch 2.13): the card (another torch) must read the same,
 # within PATH18A_CPU_TOL, with no operator run replicated
-PATH18A_CPU = {("olmo_1b", "train_4k", "pod"): (9.232859, "memory")}
+PATH18A_CPU = {("olmo_1b", "train_4k", "pod"): (3.906800, "memory")}
 PATH18A_CPU_TOL = 0.01
 PATH18A_TIMEOUT_S = 240
 PATH18B = (("zamba2_1p2b", "train"), ("olmo_1b", "prefill"),
@@ -706,8 +728,8 @@ FLEET_BLOCKS, FLEET_FLEET, FLEET_REPLICAS = ("llama_block", "ffnn"), \
 FLEET_EPISODES, FLEET_K = 16, 8
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_RUNS = (
-    ["--graph", "llama_layer", "--devices", "v100x8", "--stage1", "16",
-     "--stage2", "16", "--stage2-batch", "16", "--engine", "fused",
+    ["--graph", "llama_layer", "--devices", "v100x8", "--stage1", "8",
+     "--stage2", "8", "--stage2-batch", "16", "--engine", "fused",
      "--stage3", "2", "--stage3-batch", "8", "--system", "executor",
      "--calibrate", "--flops-scale", "1", "--bytes-scale", "1",
      "--ckpt-dir", str(CLI_DIR), "--trace", str(CLI_DIR / "trace.json")],
@@ -1777,10 +1799,12 @@ def serve_request(dev, cfg):
     return params, prompt, steps, res, launches, peak_gb
 
 
-def serve_path(dev, arch):
-    """``serve_request`` for a token-fed config at full width; the prompt
-    as token ids."""
+def serve_path(dev, arch, layers=None):
+    """``serve_request`` for a token-fed config at full width (over its
+    first ``layers`` layers, if given); the prompt as token ids."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params, prompt, _, res, launches, peak_gb = serve_request(dev, cfg)
     return cfg, params, prompt["tokens"], res, launches, peak_gb
 
@@ -1931,19 +1955,23 @@ def check_gemma_path(cfg, params, prompt, res, launches, peak_gb, dev):
 
 
 def check_xlstm_path(cfg, params, prompt, res, launches, peak_gb, dev):
-    """xlstm-1.3b: launches, outputs, and its logits gates, at zamba2's
-    bars: bf16 over 48 layers on each of XLSTM_BF16_SEEDS against the plain
-    path's own bf16 gap; fp32 over one full-width unit (XLSTM_UNIT_LAYERS:
-    7 mLSTM + 1 sLSTM) within LOGITS_TOL, both paths' error against the
-    plain path in float64 printed beside it."""
+    """xlstm-1.3b over XLSTM_SERVE_LAYERS of its 48 layers: launches,
+    outputs, and its logits gates, at zamba2's bars: bf16 over those
+    layers on each of XLSTM_BF16_SEEDS against the plain path's own bf16
+    gap; fp32 over one full-width unit (XLSTM_UNIT_LAYERS: 7 mLSTM + 1
+    sLSTM) within LOGITS_TOL, both paths' error against the plain path in
+    float64 printed beside it."""
     pattern = cfg.pattern_for_depth()
     n_m, n_s = pattern.count("mlstm"), pattern.count("slstm")
-    check((cfg.n_layers, cfg.d_model, cfg.vocab, n_m, n_s)
-          == (48, 2048, 50304, 42, 6),
-          "xlstm-1.3b at its published width and depth")
+    full = get_config(XLSTM_ARCH)
+    check((full.n_layers, cfg.n_layers, cfg.d_model, cfg.vocab, n_m, n_s)
+          == (48, XLSTM_SERVE_LAYERS, 2048, 50304,
+              7 * XLSTM_SERVE_LAYERS // 8, XLSTM_SERVE_LAYERS // 8),
+          f"xlstm-1.3b at its published width over {XLSTM_SERVE_LAYERS} of "
+          f"its 48 layers")
     check(launches == {"flash_attention": 0, "mamba2_scan": n_m,
                        "flash_fwd_wgmma": 0, "flash_fwd_mma": 0},
-          f"one xlstm-1.3b prefill launches mamba2_scan 42x and "
+          f"one xlstm-1.3b prefill launches mamba2_scan {n_m}x and "
           f"flash_attention never: {launches}")
     check_outputs(cfg, res)
     print_serve(cfg, res, launches, peak_gb)
@@ -2070,8 +2098,8 @@ def xlstm_path(dev) -> dict:
     t0 = time.perf_counter()
     xlstm = check_mamba2_xlstm(dev, get_config(XLSTM_ARCH))
     t0 = part("kernel", t0)
-    cfg, params, prompt, res, launches, peak_gb = serve_path(dev,
-                                                             XLSTM_ARCH)
+    cfg, params, prompt, res, launches, peak_gb = serve_path(
+        dev, XLSTM_ARCH, XLSTM_SERVE_LAYERS)
     t0 = part("serve", t0)
     check_xlstm_path(cfg, params, prompt, res, launches, peak_gb, dev)
     t0 = part("gates", t0)
@@ -5774,6 +5802,252 @@ def path19(dev, started: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------- path 20
+# 20a: the kernels' local-shard mapping, (arch, m) of a (1, m) mesh on a
+# fake group (one process; each rank r in turn); the attention shapes of
+# olmo (16 = KV heads), qwen3-moe (64 over 4 KV heads: KV replicated over
+# 16) and gemma (one KV head), the scan at zamba2's
+PATH20A_FLASH = (("olmo_1b", 4), ("qwen3_moe_235b_a22b", 16),
+                 ("gemma_2b", 4))
+PATH20A_SCAN = ("zamba2_1p2b", 4)
+PATH20A_BATCH, PATH20A_SEQ = 1, 2048
+# 20b: olmo-1b through the sharded loop on a one-rank NCCL group, mesh (1,
+# 1), against the unsharded loop from the same params
+TRAIN20_ARCH, TRAIN20_STEPS, TRAIN20_BATCH, TRAIN20_SEQ = \
+    "olmo_1b", 2, 4, 2048
+TRAIN20_TOL = 1e-6
+# 20c: granite-moe under dispatch="shard_map" on that mesh against the
+# gspmd plan unsharded, 2 layers at full width, batch 1 x 512
+PATH20C_ARCH, PATH20C_LAYERS, PATH20C_BATCH, PATH20C_SEQ = \
+    "granite_moe_3b_a800m", 2, 1, 512
+
+
+def _head_shard(t, mesh, r: int, m: int, dim: int = 2):
+    """Rank r's block of ``t``'s dim ``dim`` as its local shard of a
+    DTensor split there over 'model'."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    n = t.shape[dim] // m
+    return DTensor.from_local(t.narrow(dim, r * n, n), mesh,
+                              [Replicate(), Shard(dim)], run_check=False)
+
+
+def path20a(dev) -> dict:
+    """20a: ``flash_attention`` and ``ssd_scan`` on CUDA DTensors, each
+    rank of a (1, m) mesh in turn: every rank's output must be, bit for
+    bit, the heads it owns of the one-device kernel call, with the
+    DTensor's placements; a rank whose KV heads are replicated takes the
+    KV heads its query heads map to.  -> launches by kernel, of the
+    ranks' calls."""
+    from torch.distributed.tensor import DTensor, Replicate
+    gen = torch.Generator(dev).manual_seed(20)
+    counts = {"flash_fwd_wgmma": 0, "flash_fwd_mma": 0, "mamba2_scan": 0}
+    try:
+        for arch, m in PATH20A_FLASH:
+            cfg = get_config(arch)
+            B, S = PATH20A_BATCH, PATH20A_SEQ
+            H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            q, k, v = _qkv(gen, B, S, H, Hkv, d, torch.bfloat16, dev)
+            full = fa_ops.flash_attention(q, k, v)
+            name = ("flash_fwd_wgmma" if fa_ops.uses_wgmma(torch.bfloat16, d)
+                    else "flash_fwd_mma")
+            Hl, same = H // m, True
+            for r in range(m):
+                mesh = make_sizing_mesh({"data": 1, "model": m}, rank=r,
+                                        device_type="cuda")
+                dq = _head_shard(q, mesh, r, m)
+                dk, dv = ((_head_shard(t, mesh, r, m) if Hkv % m == 0 else
+                           DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                              run_check=False))
+                          for t in (k, v))
+                before = fa_ops.kernel_launches[name]
+                out = fa_ops.flash_attention(dq, dk, dv)
+                counts[name] += fa_ops.kernel_launches[name] - before
+                same &= (tuple(out.placements) == tuple(dq.placements)
+                         and torch.equal(out.to_local(),
+                                         full[:, :, r * Hl:(r + 1) * Hl]))
+            print(f"path 20a {name} at {cfg.name}'s shape (H {H}, KV {Hkv}, "
+                  f"d {d}, B {B} x S {S}, bf16) over (1, {m}): every rank's "
+                  f"heads bit-equal to the one-device call: {same}")
+            check(same, f"20a {name} at {cfg.name}'s shape: each rank's "
+                        f"heads bit-equal")
+        arch, m = PATH20A_SCAN
+        ssm = get_config(arch).ssm
+        H, N = ssm.n_heads, ssm.state_dim
+        P = ssm.expand * get_config(arch).d_model // H
+        q, k, v, log_a, _ = _ssd_inputs(gen, PATH20A_BATCH, PATH20A_SEQ, H,
+                                        N, P, dev)
+        y, st = ssd_ops.ssd_scan(q, k, v, log_a, ssm.chunk)
+        Hl, same = H // m, True
+        for r in range(m):
+            mesh = make_sizing_mesh({"data": 1, "model": m}, rank=r,
+                                        device_type="cuda")
+            parts = [_head_shard(t, mesh, r, m) for t in (q, k, v, log_a)]
+            before = ssd_ops.launches
+            dy, dst = ssd_ops.ssd_scan(*parts, ssm.chunk)
+            counts["mamba2_scan"] += ssd_ops.launches - before
+            same &= (tuple(dy.placements) == tuple(parts[2].placements)
+                     and torch.equal(dy.to_local(),
+                                     y[:, :, r * Hl:(r + 1) * Hl])
+                     and torch.equal(dst.to_local(),
+                                     st[:, r * Hl:(r + 1) * Hl]))
+        print(f"path 20a mamba2_scan at {arch}'s shape (H {H}, N {N}, P {P}, "
+              f"chunk {ssm.chunk}, q and k shared) over (1, {m}): every "
+              f"rank's heads and state bit-equal: {same}")
+        check(same, "20a mamba2_scan: each rank's heads bit-equal")
+    finally:
+        destroy_sizing_mesh()
+    check(all(n > 0 for n in counts.values()),
+          f"20a launched every kernel on local shards: {counts}")
+    return counts
+
+
+def _one_rank_nccl(dev):
+    """A one-rank NCCL group on this card and its (1, 1) mesh."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev.index if dev.index is not None
+                          else torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return make_host_mesh(1, 1)
+
+
+def path20b(dev, mesh) -> dict:
+    """20b: olmo-1b at full width and depth (f32 params, bf16 compute,
+    remat) through ``train_loop`` for TRAIN20_STEPS steps, unsharded and
+    then over ``mesh``, from the same params: losses and params after the
+    last step bit-equal (else within TRAIN20_TOL), 32 ``flash_fwd_wgmma``
+    launches a step under both, no operator run whole.  A check of the
+    driver's wiring over a real group, not of sharding: on the (1, 1)
+    mesh every placement is ``Replicate``, so nothing is split and no
+    operator can run whole; 20a holds the kernels on split shards."""
+    cfg = get_config(TRAIN20_ARCH)
+    p0 = lm.init_params(cfg, 0, device=dev)
+    runs, launches, wall = {}, {}, {}
+    for kind, on in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.synchronize()
+        _zero_lm_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = train_driver.train_loop(
+                cfg, steps=TRAIN20_STEPS, batch=TRAIN20_BATCH,
+                seq=TRAIN20_SEQ, device=dev, mesh=on, init=p0, log_every=1)
+        torch.cuda.synchronize()
+        wall[kind] = time.perf_counter() - t0
+        launches[kind] = _lm_counts()
+        params = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                  for t in tree_leaves(res.params)]
+        runs[kind] = {"loss": [float(m["loss"]) for m in res.metrics],
+                      "ends": res.step_end_s, "params": params,
+                      "replicated": res.replicated}
+        del res
+        torch.cuda.empty_cache()
+    a, b = runs["unsharded"], runs["sharded"]
+    bit = a["loss"] == b["loss"] and all(
+        torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    gap = max(float((x - y).abs().max())
+              for x, y in zip(a["params"], b["params"]))
+    loss_gap = max(abs(x - y) for x, y in zip(a["loss"], b["loss"]))
+    per_step = step_launches(cfg)
+    print(f"path 20b {cfg.name} ({cfg.n_layers} layers, f32 params, bf16 "
+          f"compute, remat, {CARD}): batch {TRAIN20_BATCH} x "
+          f"{TRAIN20_SEQ}, {TRAIN20_STEPS} steps unsharded and over a "
+          f"one-rank NCCL mesh (1, 1): losses {a['loss']} / {b['loss']}; "
+          f"bit-equal {bit}, params max gap {gap}, loss gap {loss_gap}; "
+          f"launches {launches} ({per_step} a step); step ends s "
+          f"{a['ends']} / {b['ends']}; wall s {wall}; replicated "
+          f"{b['replicated']}")
+    check(bit or (gap <= TRAIN20_TOL and loss_gap <= TRAIN20_TOL),
+          f"20b: the sharded loop equals the unsharded one ({gap}, "
+          f"{loss_gap})")
+    want = {k: TRAIN20_STEPS * v for k, v in per_step.items()}
+    check(per_step["flash_fwd_wgmma"] == 32 and all(
+        n == want for n in launches.values()),
+          f"20b: flash_fwd_wgmma 32x a step under both: {launches}")
+    check(b["replicated"] == {}, f"20b: no operator run whole: "
+                                 f"{b['replicated']}")
+    del p0, runs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "bit_equal": bit,
+            "param_gap": gap, "wall_s": wall}
+
+
+def path20c(dev, mesh) -> dict:
+    """20c: granite-moe at full width over PATH20C_LAYERS layers, one
+    batch: the loss, aux and gradients under ``dispatch="shard_map"`` on
+    ``mesh`` against the gspmd plan unsharded (one shard: the same
+    capacity and drops); bit-equal, else within path 15b's bar."""
+    from repro_torch.core.nn import value_and_grad
+    from repro_torch.parallel.annotate import use_mesh
+    from repro_torch.parallel.sharding import (data_specs, param_specs,
+                                               shard_tree)
+    cfg = dataclasses.replace(get_config(PATH20C_ARCH),
+                              n_layers=PATH20C_LAYERS)
+    sm = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="shard_map"))
+    params = lm.init_params(cfg, 0, device=dev)
+    batch = SyntheticTokenStream(
+        cfg, DataConfig(PATH20C_SEQ, PATH20C_BATCH, seed=0),
+        device=dev).next_batch()
+    _zero_lm_counts()
+    (_, (ce1, aux1)), g1 = value_and_grad(
+        lambda p: lm.lm_loss(p, cfg, batch), params, has_aux=True)
+    plain_launches = _lm_counts()
+    sp = shard_tree(params, param_specs(params, mesh, sm), mesh)
+    sb = shard_tree(batch, data_specs(batch, mesh), mesh)
+    _zero_lm_counts()
+    with use_mesh(mesh):
+        (_, (ce2, aux2)), g2 = value_and_grad(
+            lambda p: lm.lm_loss(p, sm, sb), sp, has_aux=True)
+    sharded_launches = _lm_counts()
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    g1, g2 = tree_leaves(g1), [full(t) for t in tree_leaves(g2)]
+    same = [torch.equal(a, b) for a, b in zip(g1, g2)]
+    err = max(scaled_err(b, a) for a, b in zip(g1, g2))
+    ce2, aux2 = float(full(ce2)), float(full(aux2))
+    print(f"path 20c {cfg.name} ({PATH20C_LAYERS} layers, full width, "
+          f"bf16, {CARD}): batch {PATH20C_BATCH} x {PATH20C_SEQ}: ce "
+          f"{float(ce1)} / {ce2}, aux {float(aux1)} / {aux2} (gspmd / "
+          f"shard_map); {sum(same)} of {len(same)} gradient leaves "
+          f"bit-equal, max scaled gap {err}; launches {plain_launches} / "
+          f"{sharded_launches}")
+    check(float(ce1) == ce2 and float(aux1) == aux2,
+          "20c: the loss and aux bit-equal")
+    check(all(same) or err <= LOGITS_TOL,
+          f"20c: shard_map's gradients within the bar: {err}")
+    check(plain_launches == sharded_launches == step_launches(cfg)
+          and plain_launches["flash_fwd_wgmma"] > 0,
+          f"20c: the same launches: {plain_launches}, {sharded_launches}")
+    del params, sp, g1, g2
+    torch.cuda.empty_cache()
+    return {"launches": sharded_launches, "bit_equal_leaves": sum(same),
+            "leaves": len(same), "max_scaled_gap": err}
+
+
+def path20(dev) -> dict:
+    """Path 20: 20a on fake groups, then 20b and 20c on a one-rank NCCL
+    group (destroyed after)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    res = {"20a": path20a(dev)}
+    t_a = time.perf_counter() - t0
+    mesh = _one_rank_nccl(dev)
+    try:
+        res["20b"] = path20b(dev, mesh)
+        t_b = time.perf_counter() - t0 - t_a
+        res["20c"] = path20c(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"path 20 wall s: {time.perf_counter() - t0:.3f} (20a {t_a:.3f}, "
+          f"20b {t_b:.3f})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6047,6 +6321,23 @@ def main() -> int:
         "olmo_1b_dots": b19["launches"]["dots"]["flash_fwd_wgmma"],
         "olmo_1b_full": b19["launches"]["full"]["flash_fwd_wgmma"]}
     del p19, a19, b19
+
+    # path 20: sharded LM training (20a: the kernels on CUDA DTensors'
+    # local shards, each rank of a (1, m) mesh on a fake group; 20b:
+    # olmo-1b through the sharded loop on a one-rank NCCL group against
+    # the unsharded loop; 20c: granite-moe's shard_map dispatch against
+    # the gspmd plan)
+    _zero_lm_counts()
+    p20 = path20(dev)
+    by_name["flash_attention"]["path20"] = {
+        "20a_ranks": p20["20a"]["flash_fwd_wgmma"],
+        "20b_olmo_1b": p20["20b"]["launches"],
+        "20c_granite": p20["20c"]["launches"]["flash_fwd_wgmma"]}
+    by_name["flash_attention_mma"]["path20"] = {
+        "20a_ranks": p20["20a"]["flash_fwd_mma"]}
+    by_name["mamba2_scan"]["path20"] = {
+        "20a_ranks": p20["20a"]["mamba2_scan"]}
+    del p20
 
     ported = {}
     for name, k in by_name.items():

@@ -113,13 +113,41 @@ def tree_map(fn, tree, *rest):
     return None if tree is None else fn(tree, *rest)
 
 
+class _GradInLayout(torch.autograd.Function):
+    """The identity; its backward lays the gradient out as the input is
+    (a partial sum reduce-scattered).  A Function, not a tensor hook: a
+    hook on a view waits for the view's node, which waits for every
+    use of the stacked tensor it was cut from."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def keep_grad_layout(t):
+    """``t``, and when it is a DTensor that takes a gradient, that gradient
+    laid out as ``t`` is as soon as it is made, as GSPMD lays out the
+    reference's: no rank holds the whole model's partial sums at once."""
+    if not (hasattr(t, "placements") and t.requires_grad):
+        return t
+    return _GradInLayout.apply(t)
+
+
 def value_and_grad(loss_fn, params, has_aux: bool = False):
     """``jax.value_and_grad`` over a tree of tensors: (value, grads shaped
     like ``params``), the value detached; a leaf the loss does not reach
     gets a zero gradient, as in JAX.  With ``has_aux``, ``loss_fn``
-    returns (loss, aux) and the value is that pair."""
+    returns (loss, aux) and the value is that pair.  A DTensor leaf's
+    gradient comes out laid out as the leaf."""
     p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    out = loss_fn(p)
+    out = loss_fn(tree_map(keep_grad_layout, p))
     loss = out[0] if has_aux else out
     leaves = tree_leaves(p)
     gs = (torch.autograd.grad(loss, leaves, allow_unused=True)

@@ -31,11 +31,18 @@ a CUDA call launches the same kernel either way (``flash_fwd_wgmma``
 splits P into bf16 hi + lo, ``flash_fwd_mma`` likewise in 16 bits), and
 its backward differentiates the plain version in the mode asked for.  In
 bf16 the two modes differ by P's rounding, within the bf16 bar.
+
+DTensor arguments (a model on a device mesh) run shard by shard
+(``_flash_shards``): the kernel, or on CPU shards the plain version, on
+each rank's batch rows and query heads, with the KV heads those heads
+map to; a CUDA DTensor never takes the plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from ...parallel import local_shards
+from ...parallel.annotate import is_dtensor, replicate_like
 from .. import _build
 from .ref import attention_ref, chunked_attention
 
@@ -141,6 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if backend not in BACKENDS:
         raise ValueError(f"unknown flash_attention backend {backend!r}; "
                          f"expected one of {BACKENDS}")
+    if is_dtensor(q):
+        return _flash_shards(q, k, v, causal, backend, mixed)
     if backend == "torch" or q.device.type == "cpu":
         # the reference's train and prefill path, a loop over chunks of
         # 512 queries (one chunk where S is no multiple of 512: the kernel
@@ -151,3 +160,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _Flash.apply(q, k, v, causal, mixed)
+
+
+def _flash_shards(q, k, v, causal: bool, backend: str, mixed: bool):
+    """``flash_attention`` on DTensors: q laid out by batch (dim 0) and
+    heads (dim 2), another split moved to the heads or gathered; k and v
+    split alike where the KV heads divide, else replicated, and then
+    each rank takes the KV heads its query heads map to (h // G over the
+    global h), their gradient a partial sum over those mesh dims.  The
+    kernel runs on each rank's local tensors; the result has q's
+    placements."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    qp = local_shards.layout(q, keep=(0, 2), to=2)
+    heads = [i for i, p in enumerate(qp) if local_shards.is_shard(p, 2)]
+    n_heads = 1
+    for i in heads:
+        n_heads *= mesh.size(i)
+    split_kv = Hkv % n_heads == 0
+    kp = [p if local_shards.is_shard(p, 0)
+          or (local_shards.is_shard(p, 2) and split_kv) else Replicate()
+          for p in qp]
+    q = local_shards.laid_out(q, qp)
+    k, v = (local_shards.laid_out(replicate_like(t, q), kp) for t in (k, v))
+    if split_kv:
+        kl, vl = (t.to_local().contiguous() for t in (k, v))
+    else:
+        h0, hl = local_shards.block(mesh, qp, 2, H)
+        if hl % G and G % hl:
+            raise ValueError(
+                f"flash_attention: {hl} query heads a rank do not cover "
+                f"whole groups of {G} over {Hkv} KV heads")
+        lo, hi = h0 // G, (h0 + hl - 1) // G + 1
+        gp = [Partial() if i in heads else p for i, p in enumerate(kp)]
+        kl, vl = (t.to_local(grad_placements=gp)[:, :, lo:hi].contiguous()
+                  for t in (k, v))
+    # a local shard may be a strided view (a split of the heads); the
+    # kernel reads contiguous tensors
+    out = flash_attention(q.to_local().contiguous(), kl, vl, causal,
+                          backend, mixed)
+    return local_shards.wrap(out, mesh, qp, q.shape)

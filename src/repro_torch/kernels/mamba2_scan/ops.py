@@ -36,12 +36,19 @@ checkpointing runs it again), its backward recomputes the plain version
 q, k, v, ``log_a`` and the carried-in state gradients of the caller's
 shapes (the broadcast q and k and a pitched v included).  The reference
 has no backward kernel either: its models train through ``chunked_gla``.
+
+DTensor arguments (a model on a device mesh) run shard by shard
+(``_scan_shards``): the kernels, or on CPU shards the plain version, on
+each rank's batch rows and heads; a CUDA DTensor never takes the plain
+version.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ...parallel import local_shards
+from ...parallel.annotate import is_dtensor, replicate_like
 from .. import _build
 from .ref import ssd_scan_ref
 
@@ -178,8 +185,41 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if backend not in BACKENDS:
         raise ValueError(f"unknown mamba2_scan backend {backend!r}; "
                          f"expected one of {BACKENDS}")
+    if any(is_dtensor(t) for t in (q, k, v, log_a, state)):
+        return _scan_shards(q, k, v, log_a, chunk, state, backend)
     if backend == "torch" or q.device.type == "cpu":
         return ssd_scan_ref(q, k, v, log_a, chunk, state)
     if q.device.type != "cuda":
         raise ValueError(f"mamba2_scan: unsupported device {q.device}")
     return _Scan.apply(q, k, v, log_a, chunk, state)
+
+
+def _scan_shards(q, k, v, log_a, chunk: int, state, backend: str):
+    """``ssd_scan`` on DTensors: every input laid out by v's batch (dim 0)
+    and head (dim 2) splits, another split of v moved to the heads or
+    gathered (log_a's heads are its dim 2, the state's its dim 1); the
+    kernels run on each rank's local tensors; y has v's placements, the
+    state the same split of its batch and heads."""
+    from torch.distributed.tensor import Shard
+    like = next(t for t in (v, q, k, log_a, state) if is_dtensor(t))
+    mesh = like.device_mesh
+    v = replicate_like(v, like)
+    vp = local_shards.layout(v, keep=(0, 2), to=2)
+    sp = [Shard(1) if local_shards.is_shard(p, 2) else p for p in vp]
+    q, k, v, log_a = (local_shards.laid_out(replicate_like(t, like), vp)
+                      for t in (q, k, v, log_a))
+    if state is not None:
+        state = local_shards.laid_out(replicate_like(state, like),
+                                      sp).to_local().contiguous()
+    # a split of the heads may leave v a strided view: the kernel reads it
+    # contiguous or pitched (q and k keep their strides: a head stride of
+    # 0 is the kernel's shared case)
+    vl = v.to_local()
+    if _row_pitch(vl) is None:
+        vl = vl.contiguous()
+    y, st = ssd_scan(q.to_local(), k.to_local(), vl, log_a.to_local(), chunk,
+                     state, backend)
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    return (local_shards.wrap(y, mesh, vp, (B, S, H, P)),
+            local_shards.wrap(st, mesh, sp, (B, H, P, N)))

@@ -68,6 +68,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..parallel.local_shards import contiguous_stride as _contiguous_stride
 from .aten_analysis import collective_bytes
 
 _MATMULS = frozenset(("mm", "bmm", "addmm", "baddbmm"))
@@ -843,14 +844,6 @@ def _slice(func, args, kwargs):
     return DTensor.from_local(piece, x.device_mesh, pl, run_check=False,
                               shape=tuple(shape),
                               stride=_contiguous_stride(shape))
-
-
-def _contiguous_stride(shape) -> tuple:
-    st, acc = [], 1
-    for d in reversed(shape):
-        st.append(acc)
-        acc *= max(int(d), 1)
-    return tuple(reversed(st))
 
 
 _RULES = {"logsumexp": _logsumexp, "scatter_add": _scatter_add,

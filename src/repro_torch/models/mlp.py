@@ -15,8 +15,21 @@ dtype, which is the order of the reference's scatter-add; it uses no
 atomic adds, so its bits do not vary run to run on CUDA.
 
 On a device mesh (``parallel/annotate.py``) the dispatch buffer takes the
-reference's ``constrain_first`` annotations.  The reference's
-``shard_map`` dispatch is not ported (ROADMAP A12.5).
+reference's ``constrain_first`` annotations.
+
+``MoEConfig.dispatch="shard_map"`` takes the reference's expert-parallel
+branch under its condition (an ambient mesh with a 'model' axis that
+divides E; otherwise the ``gspmd`` plan): tokens split over the batch
+axes and replicated over 'model', each 'model' rank owning E/m
+contiguous experts, routing local, assignments to other ranks' experts
+sorted into a trash bucket, capacity per shard, local ``bmm``s, and the
+partial outputs summed over 'model' once.  The aux loss is the mean over
+the batch shards of each shard's Switch loss, the reference's (not the
+global loss).  Both reductions are DTensor placements: the output is
+``Partial`` over 'model', the aux loss a ``Partial`` sum of each rank's
+share, each redistributed to ``Replicate``, so autograd gives each rank
+the cotangent JAX's transposes give (``Partial("avg")`` is not used: its
+backward hands every rank the whole cotangent, not its share).
 """
 from __future__ import annotations
 
@@ -26,7 +39,9 @@ import numpy as np
 import torch
 
 from ..core.nn import at_least_f32, tracing
-from ..parallel.annotate import constrain_first
+from ..parallel import local_shards
+from ..parallel.annotate import (BATCH, MODEL, constrain_first, get_mesh,
+                                 replicated)
 from .common import dense_init, gated_act, gelu
 from .config import MoEConfig
 
@@ -150,25 +165,41 @@ def moe_experts(params: dict, xf: torch.Tensor, route: Route,
     """Capacity dispatch, the experts and the combine for ``xf`` (T, D)
     routed by ``route`` -> (T, D) in ``xf``'s dtype.  No host sync and no
     scatter: the buffer is gathered from ``xf`` and a zero row."""
-    T, D = xf.shape
-    E, K = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(T, cfg)
-    plan = moe_slots(route.experts, E, cap)
     # expert-parallel dispatch on a mesh: the buffer's experts over
     # 'model' when E divides it, else (the 'token_parallel' fallback) its
     # capacity; no-ops without a mesh
     dims = (0, 1) if cfg.fallback == "token_parallel" else (0,)
-    buf = constrain_first(
-        torch.cat([xf, xf.new_zeros(1, D)])[plan.source].view(E, cap, D),
-        "model", dims)
+    return _dispatch(params, xf, route.gate, route.experts, cfg.n_experts,
+                     moe_capacity(xf.shape[0], cfg), act, dims)
+
+
+def _dispatch(params, xf, gate, experts, n_experts: int, cap: int, act: str,
+              dims=None, trash: bool = False) -> torch.Tensor:
+    """Buffer, expert products and combine of ``xf`` (T, D) for the (T,
+    K) choices ``experts`` of ``params``' ``n_experts`` experts.  With
+    ``trash`` a choice may equal ``n_experts`` (another rank's expert: the
+    trash bucket), which is never kept.  ``dims``: the buffer's
+    ``constrain_first`` dims, or None (a rank's local dispatch)."""
+    T, D = xf.shape
+    K = experts.shape[1]
+    plan = moe_slots(experts, n_experts + int(trash), cap)
+    keep, slot, src = plan.keep, plan.slot, plan.source
+    if trash:
+        keep = keep & (experts.reshape(-1)[plan.order] < n_experts)
+        slot = torch.where(keep, slot, 0)
+        src = src[:n_experts * cap]
+
+    def annotate(t):
+        return t if dims is None else constrain_first(t, MODEL, dims)
+    buf = annotate(torch.cat([xf, xf.new_zeros(1, D)])[src].view(
+        n_experts, cap, D))
     h = gated_act(act if act in ("swiglu", "geglu") else "swiglu",
                   torch.bmm(buf, params["w_gate"]),
                   torch.bmm(buf, params["w_up"]))
-    out = constrain_first(torch.bmm(h, params["w_down"]), "model",
-                          dims).reshape(E * cap, D)
+    out = annotate(torch.bmm(h, params["w_down"])).reshape(
+        n_experts * cap, D)
 
-    contrib = _weigh_kept(plan.keep, route.gate.reshape(-1)[plan.order],
-                          out[plan.slot])
+    contrib = _weigh_kept(keep, gate.reshape(-1)[plan.order], out[slot])
     # each token's K rows of the sorted order, ascending = by expert
     rank = torch.empty_like(plan.order)
     rank[plan.order] = torch.arange(T * K, device=xf.device)
@@ -179,9 +210,105 @@ def moe_experts(params: dict, xf: torch.Tensor, route: Route,
     return y
 
 
+def shard_map_applies(cfg: MoEConfig, mesh) -> bool:
+    """The reference's condition for its ``shard_map`` branch."""
+    if cfg.dispatch != "shard_map" or mesh is None:
+        return False
+    names = tuple(mesh.mesh_dim_names or ())
+    return MODEL in names and cfg.n_experts % mesh.size(
+        names.index(MODEL)) == 0
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str):
     """x: (B, S, D) -> ((B, S, D), aux load-balancing loss)."""
+    mesh = get_mesh()
+    if shard_map_applies(cfg, mesh):
+        return _moe_ffn_shard_map(params, x, cfg, act, mesh)
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     route = moe_route(params, xf, cfg)
     return moe_experts(params, xf, route, cfg, act).view(B, S, D), route.aux
+
+
+class LocalPlan(NamedTuple):
+    """One rank's view of the ``shard_map`` dispatch (``local_plan``)."""
+    route: Route            # its tokens' routing over all E experts
+    experts: torch.Tensor   # (T, K) its local expert ids, n_local = trash
+    n_local: int            # its experts
+    cap: int                # its capacity
+
+    def kept_dropped(self) -> tuple[int, int]:
+        """(kept, dropped) of its own experts' assignments (a host
+        read)."""
+        own = torch.bincount(self.experts.reshape(-1),
+                             minlength=self.n_local + 1)[:self.n_local]
+        kept = int(own.clamp(max=self.cap).sum())
+        return kept, int(own.sum()) - kept
+
+
+def local_plan(params: dict, xf: torch.Tensor, cfg: MoEConfig, first: int,
+               n_local: int) -> LocalPlan:
+    """The routing and dispatch plan of one shard's tokens ``xf`` (T, D)
+    on the rank owning experts [first, first + n_local)."""
+    route = moe_route(params, xf, cfg)
+    e = route.experts
+    mine = (e >= first) & (e < first + n_local)
+    return LocalPlan(route, torch.where(mine, e - first, n_local), n_local,
+                     moe_capacity(xf.shape[0], cfg))
+
+
+def _moe_ffn_shard_map(params: dict, x, cfg: MoEConfig, act: str, mesh):
+    """The reference's ``_moe_ffn_shard_map`` on DTensors (plain
+    arguments are taken as replicated).  Per rank: its batch shard of the
+    tokens, the whole router, its E/m experts; routing, softmax and
+    top-k on its tokens; its own experts' assignments bucketed at the
+    shard's capacity round(T_loc K / E * factor), the rest into the
+    trash; local products and combine; the partial outputs summed over
+    'model'.  aux: each shard's Switch loss, meaned over the batch
+    shards.  Gradients: x's and the router's are each rank's partial
+    sums (over 'model'; the router's over every axis), the experts'
+    partial over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    mi = names.index(MODEL)
+    m = mesh.size(mi)
+    n_local = cfg.n_experts // m
+    # the batch axes that split anything (a mesh dim of one rank is
+    # replicated: DTensor cannot view a split dim of size 1)
+    batch = [i for i, a in enumerate(names)
+             if a in BATCH and mesh.size(i) > 1]
+    n_batch = 1
+    for i in batch:
+        n_batch *= mesh.size(i)
+    B, S, D = x.shape
+    dims = range(mesh.ndim)
+    xp = [Shard(0) if i in batch else Replicate() for i in dims]
+    wp = [Shard(0) if i == mi else Replicate() for i in dims]
+    partial = [Partial()] * mesh.ndim
+    # x's gradient: each 'model' rank's share (its experts) summed
+    x_grad = [Shard(0) if i in batch else (Partial() if i == mi
+                                            else Replicate()) for i in dims]
+
+    x_l = local_shards.laid_out(replicated(x, mesh), xp).to_local(
+        grad_placements=x_grad)
+    router = local_shards.laid_out(replicated(params["router"], mesh),
+                                   [Replicate()] * mesh.ndim).to_local(
+        grad_placements=partial)
+    w = {k: local_shards.laid_out(replicated(params[k], mesh), wp).to_local(
+        grad_placements=[Shard(0) if i == mi else Partial() for i in dims])
+        for k in ("w_gate", "w_up", "w_down")}
+
+    Bl = x_l.shape[0]
+    xf = x_l.reshape(Bl * S, D)
+    plan = local_plan({"router": router}, xf, cfg,
+                      mesh.get_coordinate()[mi] * n_local, n_local)
+    y = _dispatch(w, xf, plan.route.gate, plan.experts, n_local, plan.cap,
+                  act, trash=True)
+    y = local_shards.wrap(y.view(Bl, S, D), mesh, x_grad, (B, S, D))
+    # each rank's share of the mean over batch shards (the 'model' ranks
+    # hold equal copies): a sum of powers-of-two fractions, exact as the
+    # reference's pmean for the meshes' sizes
+    aux = local_shards.wrap(plan.route.aux / (n_batch * m), mesh, partial,
+                            ())
+    return (y.redistribute(mesh, xp),
+            aux.redistribute(mesh, [Replicate()] * mesh.ndim))

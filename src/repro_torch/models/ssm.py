@@ -31,7 +31,9 @@ import torch.nn.functional as F
 from ..core.nn import at_least_f32, scan
 from ..kernels.mamba2_scan import ops as ssd_ops
 from ..kernels.mamba2_scan.ref import _chunk_gla, chunked_gla  # noqa: F401
-from ..parallel.annotate import BATCH, constrain, get_mesh
+from ..parallel import local_shards
+from ..parallel.annotate import (BATCH, constrain, get_mesh, replicate_like,
+                                 unsplit)
 from .common import _normal, dense_init
 from .config import SSMConfig
 
@@ -62,6 +64,12 @@ def init_mamba2(gen: torch.Generator, d_model: int, cfg: SSMConfig,
     }
 
 
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor, on each rank's shard (DTensor has
+    no sharding rule for its backward)."""
+    return local_shards.on_shards(F.logsigmoid, x)
+
+
 def _causal_conv(x, w):
     """x: (B, S, di); w: (W, di) depthwise causal conv."""
     W = w.shape[0]
@@ -86,7 +94,10 @@ def mamba2_forward(params, x, cfg: SSMConfig, state=None,
     di = cfg.expand * D
     H, N = cfg.n_heads, cfg.state_dim
     P = di // H
-    z, xin, Bs, Cs, dt = _split_proj(x @ params["w_in"], di, N, H)
+    # the split points are not the mesh's: on a mesh, gather the
+    # projection's features first and split each rank's shard
+    z, xin, Bs, Cs, dt = local_shards.on_shards(
+        lambda t: _split_proj(t, di, N, H), unsplit(x @ params["w_in"], -1))
     xin = F.silu(_causal_conv(xin, params["conv"]))
     dt = F.softplus(at_least_f32(dt) + params["dt_bias"])    # (B, S, H)
     log_a = dt * -torch.exp(params["A_log"])                 # <= 0
@@ -164,8 +175,10 @@ def _mlstm_core(params, xin, cfg: SSMConfig, B: int, S: int, di: int,
         k = constrain(k, *spec)
         v = constrain(v, *spec)
         gates = constrain(gates, BATCH, None, None)
-    i_g = torch.exp(gates[..., :H].clamp(-10.0, 5.0))        # (B, S, H)
-    log_f = F.logsigmoid(gates[..., H:])                     # <= 0
+    i_raw, f_raw = local_shards.on_shards(
+        lambda t: (t[..., :H], t[..., H:]), unsplit(gates, -1))
+    i_g = torch.exp(i_raw.clamp(-10.0, 5.0))                 # (B, S, H)
+    log_f = _logsigmoid(f_raw)                               # <= 0
     if get_mesh() is None:
         # v·i and i written into one buffer at the kernel's row pitch
         # (copies into a fresh buffer, which autograd follows)
@@ -194,7 +207,8 @@ def mlstm_forward(params, x, cfg: SSMConfig, state=None,
     P = expand * D / H; ``state`` None starts from zeros."""
     B, S, D = x.shape
     di = cfg.expand * D
-    xin, z = (x @ params["w_in"]).chunk(2, dim=-1)
+    xin, z = local_shards.on_shards(lambda t: t.chunk(2, dim=-1),
+                                    unsplit(x @ params["w_in"], -1))
     y, state = _mlstm_core(params, xin, cfg, B, S, di, state, step=False,
                            backend=backend, local_gla=local_gla)
     y = y.to(x.dtype) * F.silu(z)
@@ -241,7 +255,7 @@ def _slstm_loop(r, c, n, m, h, wx, local_gla: bool = False):
         g = wx[:, t] + torch.einsum("bhp,hpq->bhq", h, r)    # (B, H, 4P)
         zi, ii, ff, oo = g.split(P, dim=-1)
         log_i = ii.clamp(-10.0, 5.0)
-        log_f = F.logsigmoid(ff)
+        log_f = _logsigmoid(ff)
         m_new = torch.maximum(log_f + m, log_i)
         i_p = torch.exp(log_i - m_new)
         f_p = torch.exp(log_f + m - m_new)
@@ -268,7 +282,8 @@ def slstm_forward(params, x, cfg: SSMConfig, state=None,
     wx = at_least_f32(x @ params["w_gates"]).reshape(B, S, H, 4 * P)
     r = at_least_f32(params["r_gates"])
     if state is None:
-        state = slstm_init_state((B, H, P), wx.dtype, x.device)
+        state = tuple(replicate_like(t, wx) for t in slstm_init_state(
+            (B, H, P), wx.dtype, x.device))
     loop = _slstm_loop
     if local_gla:
         # gather the gate pre-activations once, before the time loop, and

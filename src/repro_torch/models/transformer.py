@@ -64,13 +64,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
-from ..core.nn import tree_map
+from ..core.nn import keep_grad_layout, tree_map
 from ..kernels.flash_attention import ops as fa_ops
-from ..parallel.annotate import BATCH, constrain, constrain_batch
+from ..parallel.annotate import (BATCH, constrain, constrain_batch,
+                                 replicate_like)
 from .attention import decode_attention
 from .common import (IGNORE_ID, apply_norm, apply_rope, cast_block_params,
                      cross_entropy_loss, dense_init, dtype_of, embed_init,
-                     softcap)
+                     embed_lookup, softcap)
 from .config import ModelConfig
 from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 from .ssm import (init_mamba2, init_mlstm, init_slstm, mamba2_forward,
@@ -320,7 +321,7 @@ def _frontend_embed(params, cfg: ModelConfig, batch: dict, cdt):
     when given, in front of them."""
     if cfg.frontend == "audio_stub":
         return batch["frames"].to(cdt)
-    x = params["embed"][batch["tokens"]].to(cdt)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cdt)
     if cfg.tie_embeddings:
         scale = float(np.sqrt(np.float32(cfg.d_model)))   # fp32, as in jnp
         x = x * torch.tensor(scale, dtype=x.dtype)
@@ -434,6 +435,10 @@ def model_apply(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     unit_params = list(zip(*(_unstack(p, reps) for p in params["unit"])))
     new_unit = [[] for _ in unit]
     for r, ps in enumerate(unit_params):
+        # on a mesh, each repetition's weight gradients are reduced as its
+        # backward ends (the node made here runs just after it), not held
+        # as partial sums until the stack of every repetition's is made
+        ps = tree_map(keep_grad_layout, ps)
         if remat is not None:
             x, aux = checkpoint(
                 lambda x, ps: unit_rep(x, ps, [None] * len(unit))[::2], x,
@@ -477,8 +482,9 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01,
                                  ssm_backend=ssm_backend)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
-        pad = labels.new_full((labels.shape[0], batch["patches"].shape[1]),
-                              IGNORE_ID)
+        pad = replicate_like(torch.full(
+            (labels.shape[0], batch["patches"].shape[1]), IGNORE_ID,
+            dtype=labels.dtype, device=labels.device), labels)
         labels = torch.cat([pad, labels], dim=1)
     ce = cross_entropy_loss(logits, labels, IGNORE_ID)
     return ce + aux_weight * aux, (ce, aux)

@@ -52,6 +52,49 @@ def _sizes():
     return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
 
 
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, _dtensor_type())
+
+
+def replicated(t, mesh):
+    """``t``, a plain tensor that every rank holds alike, as a replicated
+    DTensor on ``mesh`` (a DTensor is returned as it is)."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return _dtensor_type().from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+
+
+def replicate_like(t, like):
+    """``t``, a plain tensor that every rank computes alike (a constant, a
+    position table), as a replicated DTensor on the mesh of the DTensor
+    ``like``; ``t`` as it is when ``like`` is a plain tensor.  DTensor
+    refuses to mix the two kinds in one operator."""
+    if t is None or not is_dtensor(like):
+        return t
+    return replicated(t, like.device_mesh)
+
+
+def unsplit(x, dim: int):
+    """The DTensor ``x`` with no mesh dim splitting ``dim`` (gathered
+    there, its other placements kept); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _apply(x, clean: list):
     """Redistribute the DTensor ``x`` to the spec ``clean``."""
     from torch.distributed.tensor import DTensor

@@ -220,9 +220,12 @@ def to_placements(spec, device_mesh) -> list:
     elsewhere.  A dim over two axes (('pod', 'data')) takes both mesh
     dims; DTensor splits a dim sharded on several mesh dims in mesh-dim
     order, the first the major, which is JAX's order of the tuple as long
-    as the tuple lists its axes in mesh order (the rules' batch axes do)."""
+    as the tuple lists its axes in mesh order (the rules' batch axes do).
+    A mesh dim of one rank splits nothing and stays ``Replicate()``
+    (DTensor's view rules refuse to merge a "split" dim of size 1)."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(device_mesh.mesh_dim_names)
+    sizes = mesh_sizes(device_mesh) if hasattr(device_mesh, "shape") else {}
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
         if entry is None:
@@ -233,7 +236,8 @@ def to_placements(spec, device_mesh) -> list:
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
                              f"in mesh order {names}")
         for i in idx:
-            out[i] = Shard(d)
+            if sizes.get(names[i], 2) > 1:
+                out[i] = Shard(d)
     return out
 
 

@@ -15,6 +15,14 @@ latest checkpoint; the oldest are removed past ``keep``.
 The port imports torch and numpy only: the msgpack subset the format
 uses is packed and decoded by hand (``_msgpack.py``).  Restore places
 each leaf on the target leaf's device and dtype.
+
+Sharded trees (DTensor leaves, a run over a device mesh) keep the same
+format: a save gathers the leaves' full tensors one at a time, each
+moved to the host as it arrives, rank 0 writes them, and every rank
+waits for it; a restore reads the whole
+checkpoint on every rank and lays each leaf out as its DTensor target
+leaf is.  So a sharded run resumes a one-device checkpoint (either
+package's) and the other way round.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.nn import tree_leaves
+from ..parallel.annotate import is_dtensor
 from . import _msgpack
 
 
@@ -63,6 +72,32 @@ def save_checkpoint(ckpt_dir: str | pathlib.Path, step: int, tree,
     """Write ``tree``'s tensor leaves and ``extra`` (JSON) as checkpoint
     ``step`` of ``ckpt_dir``; -> the published directory."""
     ckpt_dir = pathlib.Path(ckpt_dir)
+    leaves = _flatten(tree)
+    if not any(is_dtensor(x) for x in leaves):
+        return _write(ckpt_dir, step, (_host(x) for x in leaves), extra,
+                      keep)
+    import torch.distributed as dist
+    # one leaf gathered at a time and moved to the host as it arrives, so a
+    # card holds one full leaf beside its shards, never the whole tree
+    gathered = (_host(x.full_tensor() if is_dtensor(x) else x)
+                for x in leaves)
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, gathered, extra, keep)
+    else:
+        for _ in gathered:      # the gathers are collectives: every rank
+            pass                # takes part, only rank 0 keeps the leaf
+    dist.barrier()
+    return ckpt_dir / f"step_{step:09d}"
+
+
+def _host(leaf: torch.Tensor) -> np.ndarray:
+    return leaf.detach().cpu().numpy()          # tobytes() is C order
+
+
+def _write(ckpt_dir: pathlib.Path, step: int, arrays, extra: dict | None,
+           keep: int) -> pathlib.Path:
+    """``arrays`` (numpy, in flatten order; an iterable, consumed once)
+    written and published as checkpoint ``step``."""
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f".tmp_step_{step:09d}"
     final = ckpt_dir / f"step_{step:09d}"
@@ -70,18 +105,16 @@ def save_checkpoint(ckpt_dir: str | pathlib.Path, step: int, tree,
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    leaves = _flatten(tree)
     index = []
     with open(tmp / "arrays.msgpack", "wb") as f:
-        for i, leaf in enumerate(leaves):
-            arr = leaf.detach().cpu().numpy()   # tobytes() is C order
+        for i, arr in enumerate(arrays):
             index.append({"key": _key(i), "shape": list(arr.shape),
                           "dtype": str(arr.dtype)})
             f.write(_msgpack.pack({"key": _key(i), "dtype": str(arr.dtype),
                                    "shape": list(arr.shape),
                                    "data": arr.tobytes()}))
-    manifest = {"step": step, "n_arrays": len(leaves),
-                "treedef": f"{len(leaves)} leaves in jax.tree_util order",
+    manifest = {"step": step, "n_arrays": len(index),
+                "treedef": f"{len(index)} leaves in jax.tree_util order",
                 "index": index,
                 "extra": extra or {}, "time": time.time(),
                 "complete": True}
@@ -124,8 +157,8 @@ def read_manifest(ckpt_dir: str | pathlib.Path, step: int) -> dict:
 def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: int,
                        target_tree):
     """Checkpoint ``step`` in the structure of ``target_tree`` (tensor
-    leaves), each leaf on the target leaf's device and dtype; -> (tree,
-    extra).  Raises on an
+    leaves), each leaf on the target leaf's device and dtype, and laid
+    out as it is when it is a DTensor; -> (tree, extra).  Raises on an
     incomplete manifest and on a count or shape mismatch, before
     anything is returned."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:09d}"
@@ -145,5 +178,9 @@ def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: int,
             raise ValueError(f"array {i} shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
         np_dtype = torch.empty(0, dtype=leaf.dtype).numpy().dtype
-        out.append(torch.from_numpy(arr.astype(np_dtype)).to(leaf.device))
+        full = torch.from_numpy(arr.astype(np_dtype)).to(leaf.device)
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            full = distribute_tensor(full, leaf.device_mesh, leaf.placements)
+        out.append(full)
     return _unflatten(target_tree, out), manifest["extra"]

@@ -58,6 +58,7 @@ import torch
 from repro_torch.core.devices import FleetEvent, get_device_model, uniform_box
 from repro_torch.core.engine import ExecutorRewardEngine
 from repro_torch.core.executor import WCExecutor
+from repro_torch.launch.mesh import destroy_sizing_mesh, make_sizing_mesh
 from repro_torch.core.gdp import GDPTrainer
 from repro_torch.core.placeto import PlacetoTrainer
 from repro_torch.core.policy_io import load_policy, save_policy
@@ -1429,3 +1430,77 @@ def test_dryrun_argument_bytes_match_the_card(cuda):
     # the reduced widths is more than 1%: held exactly, up to that
     n_blocks = 3 * len(tree_leaves(params)) + 2
     assert pred["total"] <= held <= pred["total"] + 512 * n_blocks
+
+
+def _fake_mesh(r, m):
+    """Rank r's view of a (1, m) ('data', 'model') CUDA mesh on a fake
+    group."""
+    return make_sizing_mesh({"data": 1, "model": m}, rank=r,
+                            device_type="cuda")
+
+
+def _heads(t, mesh, r, m, dim=2):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    n = t.shape[dim] // m
+    return DTensor.from_local(t.narrow(dim, r * n, n), mesh,
+                              [Replicate(), Shard(dim)], run_check=False)
+
+
+# (H, Hkv, d, m, dtype): KV split alike (MHA, then GQA); KV replicated, a
+# rank's heads inside one group (qwen3-moe's 64 / 4 over 16, cut); one KV
+# head (gemma, MQA); fp32 on flash_fwd_mma
+@pytest.mark.parametrize("H,Hkv,d,m,dtype", [
+    (8, 8, 128, 4, torch.bfloat16), (16, 2, 128, 8, torch.bfloat16),
+    (16, 2, 64, 2, torch.bfloat16), (4, 1, 256, 2, torch.bfloat16),
+    (8, 4, 64, 2, torch.float32)])
+def test_flash_attention_on_dtensor_shards(cuda, H, Hkv, d, m, dtype):
+    """Each rank's call on CUDA DTensor shards launches the kernel on its
+    local heads (the KV heads its query heads map to when K and V are
+    replicated) and returns, bit for bit, those heads of the one-device
+    call, with q's placements."""
+    from torch.distributed.tensor import DTensor, Replicate
+    gen = torch.Generator(cuda).manual_seed(H + Hkv + d)
+    q, k, v = (torch.randn(2, 200, h, d, generator=gen, device=cuda)
+               .to(dtype) for h in (H, Hkv, Hkv))
+    full = fa_ops.flash_attention(q, k, v)
+    Hl = H // m
+    try:
+        for r in range(m):
+            mesh = _fake_mesh(r, m)
+            dq = _heads(q, mesh, r, m)
+            dk, dv = ((_heads(t, mesh, r, m) if Hkv % m == 0 else
+                       DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                          run_check=False)) for t in (k, v))
+            before = fa_ops.launches
+            out = fa_ops.flash_attention(dq, dk, dv)
+            assert fa_ops.launches == before + 1
+            assert tuple(out.placements) == tuple(dq.placements)
+            assert torch.equal(out.to_local(), full[:, :, r * Hl:(r + 1) * Hl])
+    finally:
+        destroy_sizing_mesh()
+
+
+def test_mamba2_scan_on_dtensor_shards(cuda):
+    """``ssd_scan`` on CUDA DTensors split over the heads (q and k shared
+    over them, as mamba2_forward passes them): each rank's y and state
+    are those heads of the one-device call, bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    B, S, H, N, P, L, m = 2, 300, 8, 64, 64, 128, 4
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    q = rn(B, S, 1, N).expand(B, S, H, N)
+    k = rn(B, S, 1, N).expand(B, S, H, N)
+    v = rn(B, S, H, P)
+    log_a = -torch.nn.functional.softplus(rn(B, S, H))
+    y, st = ssd_ops.ssd_scan(q, k, v, log_a, L)
+    Hl = H // m
+    try:
+        for r in range(m):
+            mesh = _fake_mesh(r, m)
+            before = ssd_ops.launches
+            dy, dst = ssd_ops.ssd_scan(
+                *(_heads(t, mesh, r, m) for t in (q, k, v, log_a)), L)
+            assert ssd_ops.launches == before + 1
+            assert torch.equal(dy.to_local(), y[:, :, r * Hl:(r + 1) * Hl])
+            assert torch.equal(dst.to_local(), st[:, r * Hl:(r + 1) * Hl])
+    finally:
+        destroy_sizing_mesh()

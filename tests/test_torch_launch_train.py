@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.launch.train as jax_train
 from repro.configs.registry import get_config as jax_get_config
@@ -253,11 +254,21 @@ def test_driver_logs_as_the_reference(runs):
         assert all(line.endswith(" ms/step)") for line in lines[:-1])
 
 
-def test_edges():
-    with pytest.raises(NotImplementedError, match="A12.5"):
-        port_train.main([*ARGV, "--device", "cpu", "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="A12.5"):
-        port_train.main([*ARGV, "--device", "cpu", "--mesh", "multipod"])
+def test_edges(tmp_path):
+    # --mesh pod / multipod train over a real group of 256 / 512 ranks:
+    # none is up, then one of the wrong size
+    for mesh in ("pod", "multipod"):
+        with pytest.raises(ValueError, match="256 ranks for a pod, 512"):
+            port_train.main([*ARGV, "--device", "cpu", "--mesh", mesh])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        for mesh, n in (("pod", 256), ("multipod", 512)):
+            with pytest.raises(ValueError, match=f"needs {n} ranks .* has "
+                                                 f"1$"):
+                port_train.main([*ARGV, "--device", "cpu", "--mesh", mesh])
+    finally:
+        dist.destroy_process_group()
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device would train")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
